@@ -1,9 +1,18 @@
 """PyTorch/CUDA port of ``onnx_transformer_tpu``.
 
 Imports ``torch`` and numpy only: nothing of JAX and nothing of the JAX
-package.  This slice covers the W8A8 int8-KV chunk-staged greedy decode:
-encoder, cross-K/V producer, SmoothQuant, W8A8 linears and the decode loop,
-with the fused quantize-matmul kernels K1/K2 hand-written in CUDA for Hopper.
+package.  It covers two serving paths of the IWSLT14 model:
+
+- the W8A8 int8-KV chunk-staged greedy decode (``greedy_decode_chunked``):
+  encoder, cross-K/V producer, SmoothQuant, W8A8 linears and the decode
+  loop, with the fused quantize-matmul kernels K1/K2;
+- the KV-cached decode of ``serving.decode`` (``greedy_decode``, its early
+  exit, the no-cache oracle, ``beam_decode``) over an fp32 or int8 cache,
+  with the int8-cache attention kernel K3 (``fused_attn=True``) and the
+  W8A8 matmul kernel K5 (W8A8 mode ``pallas``).
+
+K1, K2, K3 and K5 are CUDA kernels hand-written for Hopper; on CPU tensors
+each wrapper takes its plain PyTorch version.
 """
 
 import torch
@@ -23,9 +32,13 @@ from onnx_transformer_tpu_torch.models.transformer import (  # noqa: E402
     TransformerConfig,
     default_linear,
 )
+from onnx_transformer_tpu_torch.ops.kernels.decode_attention import (  # noqa: E402
+    decode_attention_int8,
+)
 from onnx_transformer_tpu_torch.ops.kernels.w8a8_matmul import (  # noqa: E402
     quant_w8a8_matmul_q8,
     quant_w8a8_matmul_qout,
+    w8a8_matmul,
 )
 from onnx_transformer_tpu_torch.params import (  # noqa: E402
     load_checkpoint_params,
@@ -39,10 +52,19 @@ from onnx_transformer_tpu_torch.quant.w8a8 import (  # noqa: E402
     make_w8a8_linear_impl,
     quantize_transformer,
 )
+from onnx_transformer_tpu_torch.serving.decode import (  # noqa: E402
+    beam_decode,
+    greedy_decode,
+    greedy_decode_early_exit,
+    greedy_decode_nocache,
+    ids_to_tokens,
+)
 
 __all__ = [
     "Transformer", "TransformerConfig", "default_linear", "build_stacked",
     "greedy_decode_chunked", "quant_w8a8_matmul_qout", "quant_w8a8_matmul_q8",
+    "w8a8_matmul", "decode_attention_int8", "greedy_decode", "greedy_decode_early_exit",
+    "greedy_decode_nocache", "beam_decode", "ids_to_tokens",
     "params_from_jax", "load_checkpoint_params", "load_reference_scales",
     "smooth_params", "make_w8a8_linear_impl", "quantize_transformer",
     "resolve_device",

@@ -23,7 +23,7 @@ import torch
 
 from onnx_transformer_tpu_torch.models.transformer import Transformer, default_linear
 from onnx_transformer_tpu_torch.ops import layers as L
-from onnx_transformer_tpu_torch.ops.kernels.w8a8_matmul import int_mm
+from onnx_transformer_tpu_torch.ops.kernels.w8a8_matmul import w8a8_matmul_ref
 from onnx_transformer_tpu_torch.quant import core as Q
 
 NEG_INF = L.NEG_INF
@@ -86,8 +86,7 @@ def _w8a8(x: torch.Tensor, p: dict) -> torch.Tensor:
     """Per-token int8 activation quant + int8 matmul + scale epilogue:
     x [B, Din] f32 -> [B, Dout] f32."""
     sx = Q.act_scale_per_token(x)
-    y32 = int_mm(Q.quantize(x, sx), p["wq"])
-    return y32.float() * (sx * p["sw"][None, :]) + p["b"][None, :]
+    return w8a8_matmul_ref(Q.quantize(x, sx), sx[:, 0], p["wq"], p["sw"], p["b"])
 
 
 def _quantize_rows(y: torch.Tensor):

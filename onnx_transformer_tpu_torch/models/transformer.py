@@ -1,5 +1,4 @@
-"""The encoder-decoder model (port of the encode/cross-KV half of
-``onnx_transformer_tpu/models/transformer.py``).
+"""The encoder-decoder model (port of ``onnx_transformer_tpu/models/transformer.py``).
 
 Parameters are a nested structure of dicts and lists of tensors, laid out
 as the JAX package's pytree (linear weights stored (in, out)), so a JAX
@@ -8,6 +7,11 @@ parameter tree converts leaf by leaf (``params.params_from_jax``).
 Every linear goes through the ``lin(name, x, w, b)`` seam under the
 reference module name; the W8A8 impl of ``quant/w8a8.py`` plugs in there.
 Inference only: no dropout, no taps, no fault injection.
+
+The KV cache (``init_cache``, ``decode_step``) is a dict of per-layer dicts
+of tensors, as in the JAX package, but a step writes its K/V rows into the
+cache's buffers in place (the JAX version copies functionally): the cache
+that ``decode_step`` returns holds the same buffers it was given.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 
 from onnx_transformer_tpu_torch.device import resolve_device
 from onnx_transformer_tpu_torch.ops import layers as L
+from onnx_transformer_tpu_torch.ops.kernels.decode_attention import decode_attention_int8
 from onnx_transformer_tpu_torch.quant.core import quantize_act_per_token
 
 Params = Any
@@ -47,8 +52,73 @@ def default_linear(name: str, x: torch.Tensor, w: torch.Tensor,
     return L.linear(x, w, b)
 
 
+def _scalar_index(idx):
+    """A Python int for a scalar write index (int or 0-dim tensor), else
+    the [B] tensor unchanged."""
+    if isinstance(idx, torch.Tensor) and idx.ndim == 1:
+        return idx
+    return int(idx)
+
+
+def _slice_index(i: int, t: int) -> int:
+    """A scalar write position as JAX's dynamic_update_slice takes it:
+    negative counts from the end, then clamped into [0, t-1]."""
+    if i < 0:
+        i += t
+    return min(max(i, 0), t - 1)
+
+
+def _row_scatter(buf: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
+                 time_axis: int) -> torch.Tensor:
+    """buf[b, ..., idx[b], ...] = new[b] along ``time_axis`` (1 or 2), in
+    place.  Negative positions count from the end; positions outside
+    [-T, T) drop the row's write, as the JAX scatter's ``mode="drop"``."""
+    t = buf.shape[time_axis]
+    idx = idx.to(buf.device).long()
+    idx = torch.where(idx < 0, idx + t, idx)
+    keep = (idx >= 0) & (idx < t)
+    rows = torch.arange(buf.shape[0], device=buf.device)[keep]
+    if time_axis == 1:
+        buf[rows, idx[keep]] = new[keep]
+    else:
+        buf[rows, :, idx[keep]] = new[keep]
+    return buf
+
+
+def _cache_update(buf: torch.Tensor, new: torch.Tensor, idx) -> torch.Tensor:
+    """Write ``new`` [B, H, 1, dk] into ``buf`` [B, H, T, dk] at time
+    ``idx``, in place: a scalar (placed as JAX's dynamic_update_slice
+    places it, see :func:`_slice_index`) or a [B] vector of per-row
+    positions (out-of-range rows dropped).  Returns ``buf``."""
+    idx = _scalar_index(idx)
+    if isinstance(idx, int):
+        buf[:, :, _slice_index(idx, buf.shape[2])] = new[:, :, 0]
+        return buf
+    return _row_scatter(buf, new[:, :, 0], idx, time_axis=2)
+
+
+def _scale_update(buf: torch.Tensor, new: torch.Tensor, idx,
+                  time_major: bool = False) -> torch.Tensor:
+    """Row write for the merged-head int8 caches and their scales, in
+    place: ``new`` [B, 1, X] lands at time ``idx`` of ``buf`` [B, T, X], or
+    of ``buf`` [T, B, X] with ``time_major`` (scalar ``idx`` only).  Scalar
+    indices are placed as :func:`_cache_update` places them, [B] indices
+    drop out-of-range rows.  Returns ``buf``."""
+    idx = _scalar_index(idx)
+    if time_major:
+        if not isinstance(idx, int):
+            raise ValueError("a time-major cache takes a scalar write index")
+        buf[_slice_index(idx, buf.shape[0])] = new[:, 0]
+        return buf
+    if isinstance(idx, int):
+        buf[:, _slice_index(idx, buf.shape[1])] = new[:, 0]
+        return buf
+    return _row_scatter(buf, new[:, 0], idx, time_axis=1)
+
+
 class Transformer:
-    """Functional encoder-decoder; methods are pure in (params, inputs)."""
+    """Functional encoder-decoder; methods are pure in (params, inputs),
+    except that the cached decode writes the KV cache in place."""
 
     def __init__(self, config: TransformerConfig):
         self.cfg = config
@@ -97,15 +167,88 @@ class Transformer:
         x = L.embed(src, params["src_embed"]["lut"])
         return L.positional_encoding(x, 0, self.cfg.max_len)
 
-    def _mha(self, p: Params, name: str, q_in, k_in, v_in, mask,
-             lin: LinearImpl) -> torch.Tensor:
-        """Multi-headed attention without a cache."""
-        h = self.cfg.num_heads
-        q = L.split_heads(lin(f"{name}.linears.0", q_in, p["q"]["w"], p["q"]["b"]), h)
-        k = L.split_heads(lin(f"{name}.linears.1", k_in, p["k"]["w"], p["k"]["b"]), h)
-        v = L.split_heads(lin(f"{name}.linears.2", v_in, p["v"]["w"], p["v"]["b"]), h)
-        ctx = L.scaled_dot_attention(q, k, v, mask, self.cfg.quantize_attn_probs)
-        return lin(f"{name}.linears.3", L.merge_heads(ctx), p["o"]["w"], p["o"]["b"])
+    def embed_tgt(self, params: Params, tgt: torch.Tensor, offset=0) -> torch.Tensor:
+        x = L.embed(tgt, params["tgt_embed"]["lut"])
+        return L.positional_encoding(x, offset, self.cfg.max_len)
+
+    def _mha(self, p: Params, name: str, q_in, k_in, v_in, mask, lin: LinearImpl,
+             self_cache: Optional[dict] = None, cache_index=None,
+             kv_precomputed=None, fused_attn: bool = False,
+             cache_tm: bool = False) -> torch.Tensor:
+        """Multi-headed attention.
+
+        ``self_cache``: the layer's self-attention cache ('k', 'v' fp32
+        [B, H, Tmax, dk], or the int8 rows [B, Tmax, D] with 'k_scale' and
+        'v_scale' [B, Tmax, 1], or [Tmax, B, *] with ``cache_tm``); this
+        step's k/v land at ``cache_index``.  ``kv_precomputed``: the cross
+        K/V, a (k, v) pair [B, H, S, dk] or the int8 dict {'kq', 'ks', 'vq',
+        'vs'}.  ``fused_attn``: a single-query step over an int8 cache runs
+        kernel K3 (``decode_attention_int8``)."""
+        cfg = self.cfg
+        h = cfg.num_heads
+        quant = cfg.quantize_attn_probs
+        q_full = lin(f"{name}.linears.0", q_in, p["q"]["w"], p["q"]["b"])
+        q = L.split_heads(q_full, h)
+        single_step = q.shape[2] == 1
+
+        def out_proj(ctx):
+            return lin(f"{name}.linears.3", ctx, p["o"]["w"], p["o"]["b"])
+
+        def int8_attention(kq, ks, vq, vs):
+            """One query step over an int8 cache."""
+            if fused_attn:
+                # the merged q and the merged-head cache go to K3 as they are
+                ctx = decode_attention_int8(q_full[:, 0, :], kq, ks[..., 0], vq, vs[..., 0],
+                                            mask[:, 0, 0, :], num_heads=h, quantize=quant)
+                return out_proj(ctx[:, None, :])
+            if getattr(lin, "quantized_output_grid", False):
+                # q is on the per-token int8 grid: all-int8-operand attention
+                return out_proj(L.int8_cache_attention_qdot(q_full, kq, ks, vq, vs, mask,
+                                                            quant, h))
+            return out_proj(L.merge_heads(L.int8_cache_attention(q, kq, ks, vq, vs, mask,
+                                                                 quant)))
+
+        def dequantized(kq, ks, vq, vs):
+            return (L.split_heads(kq.float() * ks, h), L.split_heads(vq.float() * vs, h))
+
+        if kv_precomputed is not None:
+            if isinstance(kv_precomputed, dict):   # int8 cross cache
+                c = kv_precomputed
+                if single_step:
+                    return int8_attention(c["kq"], c["ks"], c["vq"], c["vs"])
+                k, v = dequantized(c["kq"], c["ks"], c["vq"], c["vs"])
+            else:
+                k, v = kv_precomputed
+        else:
+            kfull = lin(f"{name}.linears.1", k_in, p["k"]["w"], p["k"]["b"])
+            vfull = lin(f"{name}.linears.2", v_in, p["v"]["w"], p["v"]["b"])
+            if self_cache is not None and "k_scale" in self_cache:
+                # int8 cache of merged-head rows quantized per token; under
+                # W8A8, k and v already sit on that grid, so this is lossless
+                kq, ks = quantize_act_per_token(kfull)
+                vq, vs = quantize_act_per_token(vfull)
+                for key, val in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
+                    self_cache[key] = _scale_update(self_cache[key], val, cache_index,
+                                                    time_major=cache_tm)
+                sc = self_cache
+                if cache_tm:
+                    if not getattr(lin, "quantized_output_grid", False):
+                        raise ValueError("a time-major int8 cache needs a W8A8 linear "
+                                         "impl whose q sits on the int8 grid")
+                    return out_proj(L.int8_cache_attention_qdot_tm(
+                        q_full, sc["k"], sc["k_scale"], sc["v"], sc["v_scale"], mask,
+                        quant, h))
+                if single_step:
+                    return int8_attention(sc["k"], sc["k_scale"], sc["v"], sc["v_scale"])
+                k, v = dequantized(sc["k"], sc["k_scale"], sc["v"], sc["v_scale"])
+            else:
+                k = L.split_heads(kfull, h)
+                v = L.split_heads(vfull, h)
+                if self_cache is not None:
+                    k = _cache_update(self_cache["k"], k, cache_index)
+                    v = _cache_update(self_cache["v"], v, cache_index)
+        ctx = L.scaled_dot_attention(q, k, v, mask, quant)
+        return out_proj(L.merge_heads(ctx))
 
     def _ffn(self, p: Params, name: str, x, lin: LinearImpl) -> torch.Tensor:
         """w_2(relu(w_1(x)))."""
@@ -121,6 +264,19 @@ class Transformer:
         x = self._sublayer(x, lp["ln0"], lambda h: self._mha(
             lp["self_attn"], f"{nm}.self_attn", h, h, h, mask, lin))
         return self._sublayer(x, lp["ln1"], lambda h: self._ffn(
+            lp["ffn"], f"{nm}.feed_forward", h, lin))
+
+    def _decoder_layer(self, lp, x, tmask, smask, lin: LinearImpl, nm: str,
+                       memory=None, layer_cache=None, cache_index=None, kv_cross=None,
+                       fused_attn: bool = False, cache_tm: bool = False) -> torch.Tensor:
+        x = self._sublayer(x, lp["ln0"], lambda h: self._mha(
+            lp["self_attn"], f"{nm}.self_attn", h, h, h, tmask, lin,
+            self_cache=layer_cache, cache_index=cache_index, fused_attn=fused_attn,
+            cache_tm=cache_tm))
+        x = self._sublayer(x, lp["ln1"], lambda h: self._mha(
+            lp["src_attn"], f"{nm}.src_attn", h, memory, memory, smask, lin,
+            kv_precomputed=kv_cross, fused_attn=fused_attn))
+        return self._sublayer(x, lp["ln2"], lambda h: self._ffn(
             lp["ffn"], f"{nm}.feed_forward", h, lin))
 
     def encode(self, params: Params, src: torch.Tensor, src_mask: torch.Tensor,
@@ -165,3 +321,121 @@ class Transformer:
                 layers.append({"cross_k": L.split_heads(ckf, h),
                                "cross_v": L.split_heads(cvf, h)})
         return layers
+
+    def decode(self, params: Params, memory, src_mask, tgt_in: torch.Tensor,
+               tgt_mask, lin: LinearImpl = default_linear, cache: Optional[dict] = None,
+               cache_index=None, fused_attn: bool = False, embed_offset=None,
+               cache_time_major: bool = False) -> torch.Tensor:
+        """Teacher-forced decode, or incremental when ``cache`` is given.
+
+        With a cache, ``tgt_in`` is the current token [B, 1], ``tgt_mask``
+        the mask over cache positions [B, 1, Tmax] and ``cache_index`` the
+        write position; ``embed_offset`` overrides the positional offset (a
+        ring write position is not the logical position).  The cache is
+        updated in place.  Returns hidden states [B, T, D]."""
+        offset = cache_index if cache is not None else 0
+        if embed_offset is not None:
+            offset = embed_offset
+        x = self.embed_tgt(params, tgt_in, offset)
+        tmask = tgt_mask[:, None, :, :] if tgt_mask is not None else None
+        smask = src_mask[:, None, :, :] if src_mask is not None else None
+        for i, lp in enumerate(params["decoder"]["layers"]):
+            layer_cache, kv_cross = None, None
+            if cache is not None:
+                layer_cache = cache["layers"][i]
+                if "cross_k_scale" in layer_cache:
+                    kv_cross = {"kq": layer_cache["cross_k"], "ks": layer_cache["cross_k_scale"],
+                                "vq": layer_cache["cross_v"], "vs": layer_cache["cross_v_scale"]}
+                elif "cross_k" in layer_cache:
+                    kv_cross = (layer_cache["cross_k"], layer_cache["cross_v"])
+            x = self._decoder_layer(lp, x, tmask, smask, lin, f"decoder.layers.{i}",
+                                    memory=memory, layer_cache=layer_cache,
+                                    cache_index=cache_index, kv_cross=kv_cross,
+                                    fused_attn=fused_attn, cache_tm=cache_time_major)
+        ln_f = params["decoder"]["ln"]
+        return L.layer_norm(x, ln_f["scale"], ln_f["bias"])
+
+    def generate(self, params: Params, x: torch.Tensor, lin: LinearImpl = default_linear,
+                 log_probs: bool = True) -> torch.Tensor:
+        """log_softmax(proj(x)), or the raw logits (argmax-equivalent)."""
+        g = params["generator"]
+        y = lin("generator.proj", x, g["w"], g["b"])
+        return L.log_softmax(y) if log_probs else y
+
+    def forward(self, params: Params, src, tgt_in, src_mask, tgt_mask,
+                lin: LinearImpl = default_linear) -> torch.Tensor:
+        """Hidden states of the teacher-forced decoder, not logits."""
+        memory = self.encode(params, src, src_mask, lin=lin)
+        return self.decode(params, memory, src_mask, tgt_in, tgt_mask, lin=lin)
+
+    def forward_logits(self, params: Params, src, tgt_in, src_mask, tgt_mask,
+                       lin: LinearImpl = default_linear) -> torch.Tensor:
+        h = self.forward(params, src, tgt_in, src_mask, tgt_mask, lin=lin)
+        return self.generate(params, h, lin=lin)
+
+    def init_cache(self, params: Params, memory: torch.Tensor, max_len: int,
+                   lin: LinearImpl = default_linear, cache_dtype: str = "fp32",
+                   time_major: bool = False) -> dict:
+        """Empty self-attention K/V buffers plus the cross-attention
+        projections of the encoder memory, per decoder layer.  ``int8``:
+        merged-head int8 rows [B, Tmax, D] (or [Tmax, B, D] with
+        ``time_major``) and per-token scales; ``fp32``: [B, H, Tmax, dk]."""
+        cfg = self.cfg
+        b, dev = memory.shape[0], memory.device
+        h, dk = cfg.num_heads, cfg.d_model // cfg.num_heads
+        layers = []
+        for cross in self.cross_kv(params, memory, lin=lin, cache_dtype=cache_dtype):
+            entry = dict(cross)
+            if cache_dtype == "int8":
+                lead = (max_len, b) if time_major else (b, max_len)
+                entry.update(
+                    k=torch.zeros((*lead, cfg.d_model), dtype=torch.int8, device=dev),
+                    v=torch.zeros((*lead, cfg.d_model), dtype=torch.int8, device=dev),
+                    k_scale=torch.zeros((*lead, 1), device=dev),
+                    v_scale=torch.zeros((*lead, 1), device=dev))
+            else:
+                entry.update(k=torch.zeros((b, h, max_len, dk), dtype=memory.dtype, device=dev),
+                             v=torch.zeros((b, h, max_len, dk), dtype=memory.dtype, device=dev))
+            layers.append(entry)
+        return {"layers": layers}
+
+    def decode_step(self, params: Params, cache: dict, tok: torch.Tensor, index,
+                    src_mask, lin: LinearImpl = default_linear, fused_attn: bool = False,
+                    log_probs: bool = True, ring_index=None,
+                    time_major: bool = False) -> tuple[torch.Tensor, dict]:
+        """One KV-cached decoder step -> (next-token log-probs [B, V], cache).
+
+        ``index``: the logical position of ``tok`` [B, 1], an int for a
+        lockstep batch or a [B] tensor of per-row positions.  ``ring_index``
+        (an int): every row writes at that physical position, and a position
+        written ``a`` steps ago is visible to a row iff ``a <= index[row]``.
+        The step's K/V rows are written into the cache's buffers in place."""
+        k0 = cache["layers"][0]["k"]
+        if time_major:
+            max_len = k0.shape[0]
+        else:
+            max_len = k0.shape[1] if k0.ndim == 3 else k0.shape[2]
+        dev = tok.device
+        b = tok.shape[0]
+        pos = torch.arange(max_len, device=dev)
+        idx = _scalar_index(index)
+        if isinstance(idx, torch.Tensor):
+            idx = idx.to(dev)
+        if ring_index is not None:
+            ring = _scalar_index(ring_index)
+            age = torch.remainder(ring - pos, max_len)
+            idx_b = idx[:, None, None] if isinstance(idx, torch.Tensor) else idx
+            step_mask = (age[None, None, :] <= idx_b).expand(b, 1, max_len)
+            write_index = ring
+            embed_offset = idx.clamp_min(0) if isinstance(idx, torch.Tensor) else max(idx, 0)
+        elif isinstance(idx, torch.Tensor):
+            step_mask = pos[None, None, :] <= idx[:, None, None]
+            write_index, embed_offset = idx, None
+        else:
+            step_mask = (pos <= idx)[None, None, :].expand(b, 1, max_len)
+            write_index, embed_offset = idx, None
+        cache = {"layers": [dict(lc) for lc in cache["layers"]]}
+        hid = self.decode(params, None, src_mask, tok, step_mask, lin=lin, cache=cache,
+                          cache_index=write_index, fused_attn=fused_attn,
+                          embed_offset=embed_offset, cache_time_major=time_major)
+        return self.generate(params, hid[:, -1], lin=lin, log_probs=log_probs), cache

@@ -1,17 +1,22 @@
-"""K1 and K2: fused per-token quantize + int8 matmul + per-token output
-quantization (port of ``quant_w8a8_matmul_qout`` and ``quant_w8a8_matmul_q8``
-in ``onnx_transformer_tpu/ops/pallas/w8a8_matmul.py``).
+"""The W8A8 matmul kernels (ports of ``onnx_transformer_tpu/ops/pallas/w8a8_matmul.py``).
 
-Each wrapper launches the CUDA kernel of ``csrc/w8a8_matmul.cu`` for a CUDA
-tensor and counts the launch in its ``launches`` attribute; for a CPU tensor
-it takes the plain PyTorch version (``*_ref``) beside it, which the card
-check also holds the kernel against, bit for bit.
+- K1 ``quant_w8a8_matmul_qout`` and K2 ``quant_w8a8_matmul_q8``: fused
+  per-token quantize + int8 matmul + per-token output quantization
+  (``csrc/w8a8_matmul.cu``).
+- K5 ``w8a8_matmul``: int8 matmul of pre-quantized activations with the
+  ``acc * (sx * sw) + b`` epilogue (``csrc/w8a8_gemm.cu``).
+
+Each wrapper launches its CUDA kernel for a CUDA tensor and counts the
+launch in its ``launches`` attribute; for a CPU tensor it takes the plain
+PyTorch version (``*_ref``) beside it, which the card check also holds the
+kernel against, bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 
+from onnx_transformer_tpu_torch.ops.kernels.build import launch
 from onnx_transformer_tpu_torch.quant.core import act_scale_per_token, quantize
 
 MAX_KN = 2048   # the TPU kernels' single-block limit on K and N
@@ -61,53 +66,48 @@ def quant_w8a8_matmul_q8_ref(x2, wq, sw, b):
     return quantize(y, sy), sy
 
 
-def _check(x, wq, sw, b):
-    k = x.shape[-1]
+def w8a8_matmul_ref(xq2: torch.Tensor, sx1: torch.Tensor, wq: torch.Tensor,
+                    sw: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5 on xq2 int8 [M, K] with scales sx1 f32 [M]:
+    f32 [M, N] = float(xq2 @ wq) * (sx1 * sw) + b, the ops of the "int8"
+    chain of ``quant/w8a8.py`` one for one."""
+    acc = int_mm(xq2, wq)
+    return acc.float() * (sx1[:, None] * sw[None, :]) + b[None, :]
+
+
+def _check_w(k: int, wq, sw, b, device):
+    """Validate W8A8 weight operands for an input of depth ``k``; a missing
+    bias becomes zeros.  Returns (N, b)."""
     if wq.dtype != torch.int8 or wq.ndim != 2 or wq.shape[0] != k:
         raise ValueError(f"wq must be int8 [K={k}, N], got {wq.dtype} {tuple(wq.shape)}")
     n = wq.shape[1]
-    if k > MAX_KN or n > MAX_KN:
-        raise ValueError(f"K={k} and N={n} must be <= {MAX_KN}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"x must be float32, got {x.dtype}")
     if b is None:
-        b = torch.zeros(n, dtype=torch.float32, device=x.device)
+        b = torch.zeros(n, dtype=torch.float32, device=device)
     for name, t in (("sw", sw), ("b", b)):
         if t.dtype != torch.float32 or tuple(t.shape) != (n,):
             raise ValueError(f"{name} must be float32 [{n}], got {t.dtype} {tuple(t.shape)}")
     for name, t in (("wq", wq), ("sw", sw), ("b", b)):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, the input on {device}")
+    return n, b
+
+
+def _check(x, wq, sw, b):
+    k = x.shape[-1]
+    n, b = _check_w(k, wq, sw, b, x.device)
+    if k > MAX_KN or n > MAX_KN:
+        raise ValueError(f"K={k} and N={n} must be <= {MAX_KN}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"x must be float32, got {x.dtype}")
     return x.reshape(-1, k), n, b
 
 
-# C signatures of the entry points: "p" a pointer or the stream, "i" an int
-_SIGNATURES = {"quant_w8a8_qout": "pppppiiip", "quant_w8a8_q8": "ppppppiiip"}
-
-
-def _launch(fn: str, device: torch.device, *args):
-    """Call a C entry point with the current stream of ``device`` appended;
-    it returns the launch's cudaError_t."""
-    import ctypes
-
-    from onnx_transformer_tpu_torch.ops.kernels.build import library
-
-    f = getattr(library(), fn)
-    if f.argtypes is None:
-        f.restype = ctypes.c_int
-        f.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
-                      for c in _SIGNATURES[fn]]
-    with torch.cuda.device(device):
-        err = f(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{fn}: CUDA launch failed with cudaError_t {err}")
-
-
-def _cuda_inputs(x2, wq, sw, b):
-    for name, t in (("x", x2), ("wq", wq), ("sw", sw), ("b", b)):
+def _ptrs(**tensors) -> list[int]:
+    """Device pointers of contiguous operands, in the order given."""
+    for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    return x2.data_ptr(), wq.data_ptr(), sw.data_ptr(), b.data_ptr()
+    return [t.data_ptr() for t in tensors.values()]
 
 
 def quant_w8a8_matmul_qout(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
@@ -122,7 +122,7 @@ def quant_w8a8_matmul_qout(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     m, k = x2.shape
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m:
-        _launch("quant_w8a8_qout", x.device, *_cuda_inputs(x2, wq, sw, b),
+        launch("quant_w8a8_qout", x.device, *_ptrs(x=x2, wq=wq, sw=sw, b=b),
                 out.data_ptr(), m, k, n)
         quant_w8a8_matmul_qout.launches += 1
     return out.reshape(*lead, n)
@@ -142,11 +142,38 @@ def quant_w8a8_matmul_q8(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     q = torch.empty((m, n), dtype=torch.int8, device=x.device)
     s = torch.empty((m, 1), dtype=torch.float32, device=x.device)
     if m:
-        _launch("quant_w8a8_q8", x.device, *_cuda_inputs(x2, wq, sw, b),
+        launch("quant_w8a8_q8", x.device, *_ptrs(x=x2, wq=wq, sw=sw, b=b),
                 q.data_ptr(), s.data_ptr(), m, k, n)
         quant_w8a8_matmul_q8.launches += 1
     return q.reshape(*lead, n), s.reshape(*lead, 1)
 
 
+def w8a8_matmul(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
+                sw: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """K5: xq int8 [..., K] with per-token scales sx f32 [...] ->
+    f32 [..., N] = float(xq @ wq) * (sx * sw) + b; any M, K and N."""
+    k = xq.shape[-1]
+    n, b = _check_w(k, wq, sw, b, xq.device)
+    lead = xq.shape[:-1]
+    if xq.dtype != torch.int8:
+        raise ValueError(f"xq must be int8, got {xq.dtype}")
+    if sx.dtype != torch.float32 or tuple(sx.shape) != tuple(lead):
+        raise ValueError(f"sx must be float32 {tuple(lead)}, got {sx.dtype} {tuple(sx.shape)}")
+    if sx.device != xq.device:
+        raise ValueError(f"sx is on {sx.device}, xq on {xq.device}")
+    xq2, sx1 = xq.reshape(-1, k), sx.reshape(-1)
+    if not xq.is_cuda:
+        return w8a8_matmul_ref(xq2, sx1, wq, sw, b).reshape(*lead, n)
+    xq2, sx1 = xq2.contiguous(), sx1.contiguous()
+    m = xq2.shape[0]
+    out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    if m:
+        launch("w8a8_gemm", xq.device, *_ptrs(xq=xq2, sx=sx1, wq=wq, sw=sw, b=b),
+               out.data_ptr(), m, k, n)
+        w8a8_matmul.launches += 1
+    return out.reshape(*lead, n)
+
+
 quant_w8a8_matmul_qout.launches = 0
 quant_w8a8_matmul_q8.launches = 0
+w8a8_matmul.launches = 0

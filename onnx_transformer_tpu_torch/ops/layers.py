@@ -9,6 +9,10 @@ The numerics follow the reference model's modules:
 - ``embed``: ``lut[x] * sqrt(d_model)``; ``_pe_table``: the log-space
   sin/cos table, built in numpy exactly as the JAX package builds it.
 
+The int8-cache attentions (``int8_cache_attention*``) attend one query step
+over the merged-head int8 K/V cache [B, T, D] with per-token scales, without
+dequantizing the cache into an f32 [B, T, D] tensor first.
+
 Inference only: there is no dropout and no tap/inject seam here.
 """
 
@@ -121,6 +125,60 @@ def scaled_dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p, v)
 
 
+def int8_cache_attention(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                         vq: torch.Tensor, vs: torch.Tensor,
+                         mask: Optional[torch.Tensor], quantize: bool) -> torch.Tensor:
+    """Scale-after-dot attention of q f32 [B, H, 1, dk] over the int8 cache
+    kq/vq [B, T, D] with scales ks/vs [B, T, 1]; mask [B, 1, 1, T].
+
+    The per-token scale is constant along dk, so it comes out of both dots:
+    ``scores[t] = (q . kq[t]) * ks[t] / sqrt(dk)`` and
+    ``ctx = sum_t (p[t] * vs[t]) * vq[t]``.  Returns [B, H, 1, dk]."""
+    b, t, d = kq.shape
+    h = q.shape[1]
+    dk = d // h
+    kr = kq.view(b, t, h, dk).float()
+    vr = vq.view(b, t, h, dk).float()
+    scores = torch.einsum("bhqd,bthd->bhqt", q, kr)
+    scores = scores * true_div(ks[:, :, 0][:, None, None, :],
+                               float(np.sqrt(dk).astype(np.float32)))
+    p = attention_probs(scores, mask, quantize)
+    pv = p * vs[:, :, 0][:, None, None, :]
+    return torch.einsum("bhqt,bthd->bhqd", pv, vr)
+
+
+def int8_cache_attention_qdot(q_full: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                              vq: torch.Tensor, vs: torch.Tensor,
+                              mask: Optional[torch.Tensor], quantize: bool,
+                              num_heads: int) -> torch.Tensor:
+    """All-int8-operand attention of the merged-head query q_full f32
+    [B, 1, D] over the int8 cache kq/vq [B, T, D], ks/vs [B, T, 1]; mask
+    [B, 1, 1, T].  The query sits on the per-token int8 grid (the W8A8 q
+    projection fake-quantizes its output), so ``round(q / sq)`` with
+    ``sq = max(max|q| / 127, 1e-9)`` (not ``SCALE_FLOOR``) recovers its int8
+    form exactly, and the score dot is an exact integer sum scaled by
+    ``sq * ks / sqrt(dk)``.  Returns [B, 1, D]."""
+    from onnx_transformer_tpu_torch.models.stacked_decode import _qdot_attn
+
+    sq = true_div(q_full.abs().amax(-1, keepdim=True), 127.0).clamp_min(1e-9)   # [B,1,1]
+    qi = torch.round(q_full / sq).to(torch.int8)[:, 0, :]
+    vis = mask[:, 0, 0, :] if mask is not None else None
+    ctx = _qdot_attn(qi, sq[:, 0, 0], kq, ks[..., 0], vq, vs[..., 0], vis,
+                     num_heads, quantize)
+    return ctx[:, None, :]
+
+
+def int8_cache_attention_qdot_tm(q_full: torch.Tensor, kq: torch.Tensor,
+                                 ks: torch.Tensor, vq: torch.Tensor, vs: torch.Tensor,
+                                 mask: Optional[torch.Tensor], quantize: bool,
+                                 num_heads: int) -> torch.Tensor:
+    """:func:`int8_cache_attention_qdot` over a time-major cache: kq/vq
+    [T, B, D], ks/vs [T, B, 1]."""
+    return int8_cache_attention_qdot(q_full, kq.transpose(0, 1), ks.transpose(0, 1),
+                                     vq.transpose(0, 1), vs.transpose(0, 1), mask,
+                                     quantize, num_heads)
+
+
 def subsequent_mask(size: int, device=None) -> torch.Tensor:
     """Lower-triangular causal mask [1, size, size]."""
     return torch.tril(torch.ones((1, size, size), dtype=torch.bool, device=device))
@@ -128,6 +186,12 @@ def subsequent_mask(size: int, device=None) -> torch.Tensor:
 
 def make_src_mask(src: torch.Tensor, pad: int = 2) -> torch.Tensor:
     return (src != pad)[:, None, :]
+
+
+def make_tgt_mask(tgt_in: torch.Tensor, pad: int = 2) -> torch.Tensor:
+    """Padding mask & causal mask: [B, T, T]."""
+    t = tgt_in.shape[-1]
+    return (tgt_in != pad)[:, None, :] & subsequent_mask(t, tgt_in.device)
 
 
 def log_softmax(x: torch.Tensor) -> torch.Tensor:

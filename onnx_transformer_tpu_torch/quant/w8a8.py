@@ -6,14 +6,18 @@ quantized, and q/k/v additionally re-quantize their *outputs*.  The
 generator and the embeddings stay fp32 unless ``include_generator`` is set.
 
 Modes: ``int8`` runs the quantize -> ``torch._int_mm`` -> scale chain;
-``fused`` sends the q/k/v projections of at least ``FUSED_MIN_TOKENS``
-tokens to kernel K1 and gives the cross-K/V producer kernel K2 as
-``lin.linear_q8``.  Modes ``fake`` and ``pallas`` are not ported yet.
+``pallas`` quantizes the activations per token and sends the int8 product
+and its epilogue to kernel K5 (``w8a8_matmul``), bit-equal to ``int8``;
+``fake`` is the reference arithmetic, an f32 matmul of the dequantized
+operands; ``fused`` sends the q/k/v projections of at least
+``FUSED_MIN_TOKENS`` tokens to kernel K1 and gives the cross-K/V producer
+kernel K2 as ``lin.linear_q8``.  In every mode q/k/v fake-quantize their
+output per token.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Literal, Optional
+from typing import Callable, Literal, Optional, get_args
 
 import torch
 
@@ -21,7 +25,8 @@ from onnx_transformer_tpu_torch.models.transformer import Transformer, default_l
 from onnx_transformer_tpu_torch.ops.kernels import w8a8_matmul as K
 from onnx_transformer_tpu_torch.quant import core as Q
 
-Mode = Literal["int8", "fused"]
+Mode = Literal["int8", "fake", "pallas", "fused"]
+MODES = get_args(Mode)
 
 # "fused" takes the kernels for calls of at least this many tokens (encoder /
 # prefill shapes) and the int8 chain below it.  The value was tuned on a TPU
@@ -89,8 +94,8 @@ def _fused_ok(p: dict, name: str, x: torch.Tensor) -> bool:
 def make_w8a8_linear_impl(payloads: dict, mode: Mode = "int8") -> Callable:
     """LinearImpl for ``Transformer`` methods: the W8A8 stand-in for every
     quantized linear, the plain fp linear for the rest."""
-    if mode not in ("int8", "fused"):
-        raise ValueError(f"mode {mode!r} is not ported (int8, fused)")
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} is not one of {MODES}")
 
     def lin(name: str, x, w, b):
         p = payloads.get(name)
@@ -98,12 +103,16 @@ def make_w8a8_linear_impl(payloads: dict, mode: Mode = "int8") -> Callable:
             return default_linear(name, x, w, b)
         if mode == "fused" and _fused_ok(p, name, x):
             return K.quant_w8a8_matmul_qout(x, p["wq"], p["sw"], p["b"])
-        lead = x.shape[:-1]
         sx = Q.act_scale_per_token(x)
         xq = Q.quantize(x, sx)
-        y32 = K.int_mm(xq.reshape(-1, xq.shape[-1]), p["wq"])
-        y = y32.float() * (sx.reshape(-1, 1) * p["sw"][None, :])
-        y = (y + p["b"]).reshape(*lead, -1)
+        if mode == "fake":
+            y = torch.matmul(Q.dequantize(xq, sx), Q.dequantize(p["wq"], p["sw"][None, :]))
+            y = y + p["b"]
+        elif mode == "pallas":
+            y = K.w8a8_matmul(xq, sx[..., 0], p["wq"], p["sw"], p["b"])
+        else:   # "int8": K5's plain version on every device
+            y = K.w8a8_matmul_ref(xq.reshape(-1, xq.shape[-1]), sx.reshape(-1), p["wq"],
+                                  p["sw"], p["b"]).reshape(*x.shape[:-1], -1)
         if is_quantized_output(name):
             y = Q.fake_quant_act_per_token(y)
         return y

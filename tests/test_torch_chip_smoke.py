@@ -1,0 +1,69 @@
+"""chip_smoke.py's phases rehearsed on the CPU at a tiny size: the kernel
+checks, the chunk-staged main path, the KV-cached serving path with its
+launch counts, and the reference phase.  On the CPU the kernel wrappers
+take their plain versions and count nothing, so each wrapper is wrapped
+here to count its calls; the CUDA-only timing and profiling are stubbed.
+The script itself runs on the card (``python3 chip_smoke.py``)."""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as C
+from onnx_transformer_tpu_torch.models import transformer as PT
+from onnx_transformer_tpu_torch.ops.kernels import decode_attention as KA
+from onnx_transformer_tpu_torch.ops.kernels import w8a8_matmul as KM
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture
+def rehearsal(monkeypatch):
+    def counting(fn):
+        def wrapper(*args, **kwargs):
+            wrapper.launches += 1
+            return fn(*args, **kwargs)
+        wrapper.launches = 0
+        wrapper.__name__ = fn.__name__
+        return wrapper
+
+    attn = counting(KA.decode_attention_int8)
+    monkeypatch.setattr(KA, "decode_attention_int8", attn)
+    monkeypatch.setattr(PT, "decode_attention_int8", attn)
+    for name in ("w8a8_matmul", "quant_w8a8_matmul_qout", "quant_w8a8_matmul_q8"):
+        monkeypatch.setattr(KM, name, counting(getattr(KM, name)))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(C, "cuda_ms", lambda fn, **k: (fn(), 0.0)[1])
+    monkeypatch.setattr(C, "profile_decode", lambda *a, **k: None)
+
+
+def test_kernel_checks(rehearsal):
+    rows = C.check_kernels(CPU, [((4, 7), 64, 96)], ((4, 7), 64, 96))
+    rows.update(C.check_k5(CPU, [((5,), 64, 96), ((1,), 300, 96), ((4, 15), 128, 128)],
+                           [((16,), 64, 64)]))
+    rows.update(C.check_k3(CPU, [(6, 9, 64, 4), (3, 1, 64, 4), (2, 9, 18, 3)], (6, 9, 64, 4)))
+    assert sorted(rows) == sorted(k for k in C.KERNELS)
+    keys = {"ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "partial_yardstick"}
+    for row in rows.values():
+        assert keys <= set(row) and row["bound_ms"] > 0
+
+
+def test_paths_and_launch_counts(rehearsal):
+    base = C.build_iwslt(CPU, num_layers=2, batch=6, src_len=9)
+    main = C.run_main_path(CPU, base, max_len=8, chunk=4, card="cpu")
+    assert main["agree"] == 1.0
+    serve = C.run_serving_path(CPU, base, max_len=8, card="cpu")
+    # K3: 2 per layer per step; K5: 6 per encoder layer, 2 cross-K/V and 8
+    # per layer per step; K1/K2 never
+    assert serve["launches"] == {"attn": 2 * 2 * 7, "w8a8": 12 + 4 + 8 * 2 * 7,
+                                 "qout": 0, "q8": 0}
+    assert serve["agree"] == serve["agree_chunked"] == 1.0
+    assert C.run_reference(CPU) == 1.0
+
+
+def test_bounds():
+    """Bytes over 3.35 TB/s against operations over their peak rate."""
+    ms, by = C.roofline_ms(3.35e9, 1.0, C.INT8_OPS_PER_S)
+    assert by == "bytes" and np.isclose(ms, 1.0)
+    ms, by = C.roofline_ms(1.0, 1979e9, C.INT8_OPS_PER_S)
+    assert by == "operations" and np.isclose(ms, 1.0)

@@ -82,3 +82,51 @@ def test_masks_and_log_softmax():
     np.testing.assert_allclose(TL.log_softmax(torch.from_numpy(x)).numpy(),
                                np.asarray(JL.log_softmax(jnp.asarray(x))), **TOL)
     assert TL.NEG_INF == JL.NEG_INF == -1e9
+
+
+def test_make_tgt_mask():
+    tgt = np.array([[0, 5, 6, 2, 2], [0, 7, 1, 4, 3]], np.int32)
+    for pad in (2, -1):
+        got = TL.make_tgt_mask(torch.from_numpy(tgt), pad=pad)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(JL.make_tgt_mask(jnp.asarray(tgt),
+                                                                               pad=pad)))
+
+
+def _int8_cache(b=5, t=11, d=32, h=4, seed=7):
+    """A query step on the per-token int8 grid and an int8 cache whose later
+    positions are masked per row."""
+    rng = _rng(seed)
+    qi = rng.integers(-127, 128, (b, 1, d)).astype(np.float32)
+    q_full = (qi * rng.uniform(0.001, 0.05, (b, 1, 1))).astype(np.float32)
+    kq = rng.integers(-127, 128, (b, t, d)).astype(np.int8)
+    vq = rng.integers(-127, 128, (b, t, d)).astype(np.int8)
+    ks = rng.uniform(0.001, 0.05, (b, t, 1)).astype(np.float32)
+    vs = rng.uniform(0.001, 0.05, (b, t, 1)).astype(np.float32)
+    lens = rng.integers(1, t + 1, b)
+    mask = (np.arange(t)[None, :] < lens[:, None])[:, None, None, :]
+    return q_full, kq, ks, vq, vs, mask
+
+
+@pytest.mark.parametrize("quantize", [True, False])
+def test_int8_cache_attentions(quantize):
+    """The scale-after-dot form, the all-int8-operand form and its
+    time-major twin, each against its JAX function."""
+    args = _int8_cache()
+    q_full, kq, ks, vq, vs, mask = args
+    jargs = [jnp.asarray(a) for a in args]
+    targs = [torch.from_numpy(a) for a in args]
+    jq = JL.split_heads(jargs[0], 4)
+    want = JL.int8_cache_attention(jq, *jargs[1:], quantize)
+    got = TL.int8_cache_attention(TL.split_heads(targs[0], 4), *targs[1:], quantize)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    want = JL.int8_cache_attention_qdot(*jargs, quantize, 4)
+    got = TL.int8_cache_attention_qdot(*targs, quantize, 4)
+    assert got.shape == (5, 1, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    tm = [np.ascontiguousarray(a.transpose(1, 0, 2)) for a in (kq, ks, vq, vs)]
+    want = JL.int8_cache_attention_qdot_tm(jargs[0], *map(jnp.asarray, tm), jargs[-1],
+                                           quantize, 4)
+    got_tm = TL.int8_cache_attention_qdot_tm(targs[0], *map(torch.from_numpy, tm), targs[-1],
+                                             quantize, 4)
+    np.testing.assert_allclose(got_tm.numpy(), np.asarray(want), **TOL)
+    assert torch.equal(got_tm, got)

@@ -1,7 +1,10 @@
 """Port of quant/w8a8.py and quant/smoothquant.py against the JAX package:
 payloads bit-equal, smoothed parameters within rtol 1e-6, the int8 chain
-bit-equal, and the fused mode (kernel plain versions on the CPU) within
-atol 1e-4 / rtol 1e-5 with FUSED_MIN_TOKENS set to 1 in both packages."""
+bit-equal, the fused mode (kernel plain versions on the CPU) within
+atol 1e-4 / rtol 1e-5 with FUSED_MIN_TOKENS set to 1 in both packages, the
+pallas mode (K5's plain version on the CPU) bit-equal to the int8 chain of
+both packages and within atol 1e-4 / rtol 1e-5 of the JAX pallas mode (its
+kernel interpreted), and the fake mode within the same bound."""
 
 import jax
 import jax.numpy as jnp
@@ -131,6 +134,44 @@ def test_fused_gate_uses_token_count(setup):
     x = torch.zeros(4, 7, 32)
     assert TW.FUSED_MIN_TOKENS == JW.FUSED_MIN_TOKENS == 8192
     assert lin_t.linear_q8("decoder.layers.0.src_attn.linears.1", x) is None
-    for mode in ("fake", "pallas"):
+    # every mode of the JAX package is ported; anything else is refused
+    assert set(TW.MODES) == {"int8", "fake", "pallas", "fused"}
+    for mode in ("int4", "fp8"):
         with pytest.raises(ValueError):
             TW.make_w8a8_linear_impl({}, mode=mode)
+
+
+NAMES = ["encoder.layers.0.self_attn.linears.1", "encoder.layers.1.feed_forward.w_2",
+         "decoder.layers.2.src_attn.linears.3", "decoder.layers.0.self_attn.linears.0"]
+
+
+def _x(name, seed=3):
+    d = 64 if "w_2" in name else 32
+    return np.random.default_rng(seed).normal(size=(4, 7, d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_pallas_mode_matches_int8_and_jax(setup, name):
+    m, params, pm, pp = setup
+    pj, pt = JW.quantize_model_params(m, params), TW.quantize_model_params(pm, pp)
+    x = _x(name)
+    got = TW.make_w8a8_linear_impl(pt, mode="pallas")(name, torch.from_numpy(x), None, None)
+    int8_t = TW.make_w8a8_linear_impl(pt, mode="int8")(name, torch.from_numpy(x), None, None)
+    assert torch.equal(got, int8_t)
+    int8_j = JW.make_w8a8_linear_impl(pj, mode="int8")(name, jnp.asarray(x), None, None)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(int8_j))
+    pallas_j = JW.make_w8a8_linear_impl(pj, mode="pallas")(name, jnp.asarray(x), None, None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas_j), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_fake_mode_matches_jax(setup, name):
+    m, params, pm, pp = setup
+    pj, pt = JW.quantize_model_params(m, params), TW.quantize_model_params(pm, pp)
+    x = _x(name, seed=4)
+    lin_t = TW.make_w8a8_linear_impl(pt, mode="fake")
+    got = lin_t(name, torch.from_numpy(x), None, None)
+    want = JW.make_w8a8_linear_impl(pj, mode="fake")(name, jnp.asarray(x), None, None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-5)
+    assert lin_t.mode == "fake" and lin_t.quantized_output_grid
+    assert not hasattr(lin_t, "linear_q8")

@@ -1,6 +1,6 @@
-"""K1 (quant_w8a8_matmul_qout) and K2 (quant_w8a8_matmul_q8): the plain
-PyTorch versions against the JAX Pallas kernels run in interpret mode on
-the CPU, as tests/test_pallas_kernels.py runs them.
+"""K1 (quant_w8a8_matmul_qout), K2 (quant_w8a8_matmul_q8) and K5
+(w8a8_matmul): the plain PyTorch versions against the JAX Pallas kernels
+run in interpret mode on the CPU, as tests/test_pallas_kernels.py runs them.
 
 XLA compiles the interpreted kernel, and on the CPU it turns ``/ 127`` into a
 multiply by the reciprocal and contracts ``acc * s + b`` into an FMA; the
@@ -8,7 +8,9 @@ port divides exactly and never contracts (as its CUDA kernels do).  So K2's
 int8 rows are bit-equal and its scales agree within rtol 1e-6, and K1
 agrees within atol 1e-4 / rtol 1e-5 (tests/test_stacked_decode.py:99).
 Against the JAX package's eager int8 chain, which also divides exactly,
-both are bit-equal.  The CUDA kernels themselves are held against these
+both are bit-equal.  K5's plain version agrees with its interpreted JAX
+kernel within that test's rtol 1e-6 / atol 1e-4 and is bit-equal to the
+eager JAX int8 chain.  The CUDA kernels themselves are held against these
 plain versions on the card by chip_smoke.py."""
 
 import jax.numpy as jnp
@@ -19,9 +21,11 @@ import torch
 from onnx_transformer_tpu.ops.pallas.w8a8_matmul import (
     quant_w8a8_matmul_q8 as jax_q8,
     quant_w8a8_matmul_qout as jax_qout,
+    w8a8_matmul as jax_w8a8,
 )
 from onnx_transformer_tpu.quant import w8a8 as JW
 from onnx_transformer_tpu_torch.ops.kernels import w8a8_matmul as K
+from onnx_transformer_tpu_torch.quant import core as Q
 
 SHAPES = [(3, 16, 64, 96), (1, 37, 64, 96)]   # the JAX test's shape, a ragged M
 
@@ -108,3 +112,85 @@ def test_int_mm_exact(m, k, n):
     got = K.int_mm(*_t(a, b))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), a.astype(np.int64) @ b.astype(np.int64))
+
+
+def _k5_case(m, k, n, seed=0):
+    """Pre-quantized operands as tests/test_pallas_kernels.py:13-25 makes
+    them."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = rng.normal(size=(k, n)).astype(np.float32)
+    sw = (np.abs(w).max(0) / 127).astype(np.float32)
+    wq = np.round(w / sw).astype(np.int8)
+    sx = (np.abs(x).max(-1) / 127).astype(np.float32)
+    xq = np.round(x / sx[:, None]).astype(np.int8)
+    bias = rng.normal(size=n).astype(np.float32)
+    return xq, sx, wq, sw, bias
+
+
+@pytest.mark.parametrize("m,k,n,lead,block_k", [
+    (64, 128, 128, None, 2048), (100, 512, 256, None, 2048), (8, 256, 512, None, 2048),
+    (60, 128, 128, (4, 15), 2048),                      # lead dims
+    (64, 512, 256, None, 128), (64, 384, 256, None, 128),
+    (64, 300, 256, None, 128),                          # K-tiled, ragged last K tile
+])
+def test_k5_ref_matches_jax_interpret(m, k, n, lead, block_k):
+    xq, sx, wq, sw, bias = _k5_case(m, k, n)
+    if lead is not None:
+        xq, sx = xq.reshape(*lead, k), sx.reshape(lead)
+    want = np.asarray(jax_w8a8(*map(jnp.asarray, (xq, sx, wq, sw, bias)), block_k=block_k,
+                               interpret=True))
+    got = K.w8a8_matmul(*_t(xq, sx, wq, sw, bias))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-4)
+
+
+def test_k5_no_bias():
+    xq, sx, wq, sw, bias = _k5_case(16, 128, 128)
+    want = np.asarray(jax_w8a8(*map(jnp.asarray, (xq, sx, wq, sw)), None, interpret=True))
+    got = K.w8a8_matmul(*_t(xq, sx, wq, sw))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-4)
+    assert torch.equal(got, K.w8a8_matmul(*_t(xq, sx, wq, sw, np.zeros(128, np.float32))))
+
+
+@pytest.mark.parametrize("m,k,n", [(200, 512, 512), (1, 300, 96)])
+def test_k5_ref_bit_equal_to_jax_eager_chain(m, k, n):
+    """Against the JAX package's "int8" linear run eagerly, fed the same
+    activations: the int8 rows and scales it computes go to K5."""
+    x = np.random.default_rng(m).normal(size=(m, k)).astype(np.float32)
+    _, _, wq, sw, bias = _k5_case(m, k, n, seed=1)
+    lin = JW.make_w8a8_linear_impl({"p.w_1": {"wq": jnp.asarray(wq), "sw": jnp.asarray(sw),
+                                              "b": jnp.asarray(bias)}}, mode="int8")
+    want = np.asarray(lin("p.w_1", jnp.asarray(x), None, None))
+    xt = torch.from_numpy(x)
+    sx = Q.act_scale_per_token(xt)
+    got = K.w8a8_matmul(Q.quantize(xt, sx), sx[:, 0], *_t(wq, sw, bias))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_k5_cpu_dispatch_and_edges():
+    """M=1 and lead dims take the plain version on the CPU; nothing is
+    counted; the plain version's product is exact."""
+    xq, sx, wq, sw, bias = _k5_case(60, 300, 96, seed=5)
+    n = K.w8a8_matmul.launches
+    one = K.w8a8_matmul(*_t(xq[:1], sx[:1], wq, sw, bias))
+    assert one.shape == (1, 96)
+    acc = xq[:1].astype(np.int64) @ wq.astype(np.int64)
+    np.testing.assert_allclose(one.numpy(), acc * (sx[:1, None] * sw) + bias, rtol=1e-6,
+                               atol=1e-4)
+    lead = K.w8a8_matmul(*_t(xq.reshape(4, 15, 300), sx.reshape(4, 15), wq, sw, bias))
+    assert lead.shape == (4, 15, 96)
+    assert torch.equal(lead.reshape(60, 96),
+                       K.w8a8_matmul_ref(*_t(xq, sx, wq, sw, bias)))
+    assert K.w8a8_matmul.launches == n
+
+
+@pytest.mark.parametrize("bad", ["xq_dtype", "sx_shape", "sx_dtype", "wq_k", "b_shape"])
+def test_k5_rejects_bad_inputs(bad):
+    xq = torch.zeros(4, 64, dtype=torch.float32 if bad == "xq_dtype" else torch.int8)
+    sx = torch.ones(5 if bad == "sx_shape" else 4,
+                    dtype=torch.float64 if bad == "sx_dtype" else torch.float32)
+    wq = torch.zeros(63 if bad == "wq_k" else 64, 96, dtype=torch.int8)
+    b = torch.zeros(97 if bad == "b_shape" else 96)
+    with pytest.raises(ValueError):
+        K.w8a8_matmul(xq, sx, wq, torch.ones(96), b)
