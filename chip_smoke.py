@@ -17,11 +17,18 @@ Phases, each printed on its own line with its seconds:
               (decode_attention_int8) within rtol 1e-5 / atol 1e-4, finite,
               at the serving shape B=512 T=72 D=512 H=8 with ragged masks and
               a fully masked row, quantize on and off, and at B=3, T=1,
-              T=1024 and a head width not divisible by 4.  CUDA-event times
-              of each kernel, its plain version and a partial yardstick (no
+              T=1024 and a head width not divisible by 4; K6
+              (quant_w4a8_matmul_qout) and K7 (quant_w4a8_matmul_q8) bit for
+              bit at the int4 path's shape, a ragged M, the JAX test's shape,
+              K=2048 and N=2048; K4 (quant_w8a8_matmul) and K8
+              (quant_w4a8_matmul) bit for bit at the encoder FFN shape, the
+              decode-step shape, M=1 with a ragged K, lead dims, and (K4) the
+              K-tiled contract at K=16384 and K=9728.  CUDA-event times of
+              each kernel, its plain version and a partial yardstick (no
               single PyTorch call computes any of them: ``torch._int_mm``
-              alone for K1/K2/K5, ``scaled_dot_product_attention`` on
-              dequantized f32 K/V for K3) beside the bound.
+              alone on the int8 or unpacked int4 weights for the matmuls,
+              ``scaled_dot_product_attention`` on dequantized f32 K/V for K3)
+              beside the bound.
 4. main path  the IWSLT14-base widths (6+6 layers, d_model 512, d_ff 2048,
               8 heads, vocabularies 5337/4444) with weights from a seed,
               SmoothQuant with the scales artifact, W8A8 in "fused" mode, and
@@ -39,11 +46,21 @@ Phases, each printed on its own line with its seconds:
               decode in "int8" mode without fused_attn (no K3, no K5): encoder
               memory within atol 1e-4 / rtol 1e-5 (equal is expected),
               >= 95 % of the tokens; and the chunk-staged decode
-              against that one, >= 95 %.  Timed, then profiled as above.
-6. reference  a small model decoded on the card and on the CPU from the same
-              weights, by the chunk-staged decode ("fused" mode) and by the
-              KV-cached decode (int8 cache, K3, "pallas" mode): >= 95 % of
-              the tokens agree in each.
+              against that one, >= 95 %.  The same decode once more with
+              K3's plain version in K3's place, its agreements printed (no
+              gate).  Timed, then profiled as above.
+6. int4 path  the same model and sources through ``bench.py``'s int4 row:
+              packed-int4 payloads, the W4A8 impl, and the chunk-staged decode
+              over the unpacked int4 values (max_len 72, chunk 8).  K6 must
+              launch 18 times and K7 12 times per decode, no other matmul
+              kernel; held against the same decode with the non-fused W4A8
+              impl: encoder memory within atol 1e-4 / rtol 1e-5, >= 95 % of
+              the tokens.  Timed, then profiled as above.
+7. reference  a small model decoded on the card and on the CPU from the same
+              weights, by the chunk-staged decode ("fused" mode), by the
+              KV-cached decode (int8 cache, K3, "pallas" mode), and by both
+              over int4 weights with ``FUSED_MIN_TOKENS`` at 1 (K6/K7): >= 95 %
+              of the tokens agree in each.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises and
 exits non-zero without it.  A SIGALRM guard turns a hang into a non-zero
@@ -64,7 +81,7 @@ from contextlib import contextmanager
 
 TOTAL_BUDGET_S = 300
 PHASE_LIMIT_S = {"device": 60, "build": 120, "kernels": 120, "main path": 180,
-                 "serving path": 180, "reference": 60}
+                 "serving path": 180, "int4 path": 120, "reference": 60}
 # H100 SXM peaks at the full 700 W power limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -78,6 +95,10 @@ KERNELS = {
     "q8": ("quant_w8a8_matmul_q8", CSRC + "w8a8_matmul.cu", PALLAS + "w8a8_matmul.py:188"),
     "attn": ("decode_attention_int8", CSRC + "decode_attention.cu", PALLAS + "attention.py:104"),
     "w8a8": ("w8a8_matmul", CSRC + "w8a8_gemm.cu", PALLAS + "w8a8_matmul.py:73"),
+    "qout4": ("quant_w4a8_matmul_qout", CSRC + "w8a8_matmul.cu", PALLAS + "w8a8_matmul.py:480"),
+    "q84": ("quant_w4a8_matmul_q8", CSRC + "w8a8_matmul.cu", PALLAS + "w8a8_matmul.py:552"),
+    "qgemm": ("quant_w8a8_matmul", CSRC + "quant_gemm.cu", PALLAS + "w8a8_matmul.py:339"),
+    "qgemm4": ("quant_w4a8_matmul", CSRC + "quant_gemm.cu", PALLAS + "w8a8_matmul.py:604"),
 }
 
 _current_phase = "start"
@@ -143,15 +164,20 @@ def cuda_ms(fn, iters: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def kernel_inputs(lead: tuple, k: int, n: int, seed: int, device):
+def kernel_inputs(lead: tuple, k: int, n: int, seed: int, device, packed: bool = False):
+    """x f32, weights int8 [K, N] (or int4 values packed to uint8 [K/2, N]),
+    sw and b f32 [N]."""
     import torch
+
+    from onnx_transformer_tpu_torch.quant.core import pack_int4
 
     g = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn((*lead, k), generator=g, device=device)
-    wq = torch.randint(-127, 128, (k, n), generator=g, device=device, dtype=torch.int8)
+    lo, hi = (-8, 8) if packed else (-127, 128)
+    wq = torch.randint(lo, hi, (k, n), generator=g, device=device, dtype=torch.int8)
     sw = torch.rand(n, generator=g, device=device) * 0.009 + 0.001
     b = torch.randn(n, generator=g, device=device) * 0.1
-    return x, wq, sw, b
+    return x, (pack_int4(wq).contiguous() if packed else wq), sw, b
 
 
 def roofline_ms(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
@@ -162,61 +188,128 @@ def roofline_ms(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bound_ms(m: int, k: int, n: int, out_bytes_per_row: int) -> tuple[float, str]:
-    """Least time for K1/K2: x read once, W/sw/b read once, the output
-    written once, against the int8 products at the tensor-core rate."""
-    nbytes = m * k * 4 + k * n + 2 * n * 4 + m * out_bytes_per_row
+def bound_ms(m: int, k: int, n: int, out_bytes_per_row: int,
+             w_bytes: int | None = None) -> tuple[float, str]:
+    """Least time for a fused quantize-matmul (K1/K2/K4/K6/K7/K8): x f32
+    read once, the weights (``w_bytes``: k*n for int8, k*n/2 packed int4)
+    and sw/b read once, the output written once, against the int8 products
+    at the tensor-core rate."""
+    w_bytes = k * n if w_bytes is None else w_bytes
+    nbytes = m * k * 4 + w_bytes + 2 * n * 4 + m * out_bytes_per_row
     return roofline_ms(nbytes, 2 * m * n * k, INT8_OPS_PER_S)
 
 
-def check_kernels(device, shapes, time_shape) -> dict:
-    """Hold K1 and K2 against their plain versions at ``shapes``
-    ((lead, K, N) tuples) and time them at ``time_shape``."""
+def check_kernels(device, shapes, time_shape, packed: bool = False) -> dict:
+    """Hold K1 and K2 (or, with ``packed``, K6 and K7 over packed-int4
+    weights) against their plain versions at ``shapes`` ((lead, K, N)
+    tuples) and time them at ``time_shape``."""
     import torch
 
     from onnx_transformer_tpu_torch.ops.kernels import w8a8_matmul as K
+    from onnx_transformer_tpu_torch.quant.core import unpack_int4
 
-    errs = {"qout": 0.0, "q8": 0.0}
+    if packed:
+        keys = ("qout4", "q84")
+        fq, f8 = K.quant_w4a8_matmul_qout, K.quant_w4a8_matmul_q8
+        rq, r8 = K.quant_w4a8_matmul_qout_ref, K.quant_w4a8_matmul_q8_ref
+    else:
+        keys = ("qout", "q8")
+        fq, f8 = K.quant_w8a8_matmul_qout, K.quant_w8a8_matmul_q8
+        rq, r8 = K.quant_w8a8_matmul_qout_ref, K.quant_w8a8_matmul_q8_ref
+    errs = dict.fromkeys(keys, 0.0)
     for i, (lead, k, n) in enumerate(shapes):
-        x, wq, sw, b = kernel_inputs(lead, k, n, seed=100 + i, device=device)
+        x, wq, sw, b = kernel_inputs(lead, k, n, seed=100 + i, device=device, packed=packed)
         x2 = x.reshape(-1, k)
-        before = (K.quant_w8a8_matmul_qout.launches, K.quant_w8a8_matmul_q8.launches)
-        y = K.quant_w8a8_matmul_qout(x, wq, sw, b).reshape(-1, n)
-        q, s = K.quant_w8a8_matmul_q8(x, wq, sw, b)
+        before = (fq.launches, f8.launches)
+        y = fq(x, wq, sw, b).reshape(-1, n)
+        q, s = f8(x, wq, sw, b)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-            if (K.quant_w8a8_matmul_qout.launches != before[0] + 1
-                    or K.quant_w8a8_matmul_q8.launches != before[1] + 1):
+            if fq.launches != before[0] + 1 or f8.launches != before[1] + 1:
                 raise RuntimeError("a kernel wrapper did not count its launch")
-        y_ref = K.quant_w8a8_matmul_qout_ref(x2, wq, sw, b)
-        q_ref, s_ref = K.quant_w8a8_matmul_q8_ref(x2, wq, sw, b)
+        y_ref = rq(x2, wq, sw, b)
+        q_ref, s_ref = r8(x2, wq, sw, b)
         q, s = q.reshape(-1, n), s.reshape(-1, 1)
         e1 = (y - y_ref).abs().max().item()
         e2 = max((q.int() - q_ref.int()).abs().max().item(), (s - s_ref).abs().max().item())
         ok = torch.equal(y, y_ref) and torch.equal(q, q_ref) and torch.equal(s, s_ref)
-        print(f"kernels {tuple(x.shape)} x {tuple(wq.shape)}: qout max_abs_err {e1} "
-              f"q8 max_abs_err {e2} bit-equal {ok}", flush=True)
+        print(f"kernels {tuple(x.shape)} x {tuple(wq.shape)} {wq.dtype}: {keys[0]} max_abs_err "
+              f"{e1} {keys[1]} max_abs_err {e2} bit-equal {ok}", flush=True)
         if not ok:
             raise AssertionError(f"kernel and plain version differ at {tuple(x.shape)}")
-        errs["qout"] = max(errs["qout"], e1)
-        errs["q8"] = max(errs["q8"], e2)
+        errs[keys[0]] = max(errs[keys[0]], e1)
+        errs[keys[1]] = max(errs[keys[1]], e2)
 
     lead, k, n = time_shape
-    x, wq, sw, b = kernel_inputs(lead, k, n, seed=99, device=device)
+    x, wq, sw, b = kernel_inputs(lead, k, n, seed=99, device=device, packed=packed)
     x2 = x.reshape(-1, k)
     m = x2.shape[0]
+    w8 = unpack_int4(wq) if packed else wq
     xq = torch.round(x2 / (x2.abs().amax(-1, keepdim=True).clamp_min(1e-5) / 127)).to(torch.int8)
-    t_int_mm = cuda_ms(lambda: K.int_mm(xq, wq))
+    t_int_mm = cuda_ms(lambda: K.int_mm(xq, w8))
+    w_bytes = wq.numel()
     rows = {}
-    for key, fn, ref, out_bytes in (
-            ("qout", K.quant_w8a8_matmul_qout, K.quant_w8a8_matmul_qout_ref, 4 * n),
-            ("q8", K.quant_w8a8_matmul_q8, K.quant_w8a8_matmul_q8_ref, n + 4)):
+    for key, fn, ref, out_bytes in ((keys[0], fq, rq, 4 * n), (keys[1], f8, r8, n + 4)):
         t_plain_a = cuda_ms(lambda: ref(x2, wq, sw, b))
         t_kernel = cuda_ms(lambda: fn(x, wq, sw, b))
         t_plain_b = cuda_ms(lambda: ref(x2, wq, sw, b))
-        bms, by = bound_ms(m, k, n, out_bytes)
+        bms, by = bound_ms(m, k, n, out_bytes, w_bytes)
         rows[key] = {"ms": t_kernel, "plain_ms": min(t_plain_a, t_plain_b),
                      "bound_ms": bms, "bound_by": by, "max_abs_err": errs[key],
+                     "partial_yardstick": {"call": "torch._int_mm", "ms": t_int_mm}}
+        print(f"time {fn.__name__} at [{m},{k}]x[{k},{n}]: kernel {t_kernel:.6f} ms, "
+              f"plain {t_plain_a:.6f}/{t_plain_b:.6f} ms, bound {bms:.6f} ms ({by}); "
+              f"torch._int_mm alone (partial yardstick) {t_int_mm:.6f} ms", flush=True)
+    return rows
+
+
+def check_quant_gemm(device, shapes: dict, time_shape) -> dict:
+    """Hold K4 (int8 weights) and K8 (packed int4) bit for bit against
+    their plain versions at ``shapes`` ({key: [(lead, K, N), ...]}), with
+    and without a bias, and time each at ``time_shape``."""
+    import torch
+
+    from onnx_transformer_tpu_torch.ops.kernels import w8a8_matmul as K
+    from onnx_transformer_tpu_torch.quant.core import unpack_int4
+
+    kernels = {"qgemm": (K.quant_w8a8_matmul, K.quant_w8a8_matmul_ref, False),
+               "qgemm4": (K.quant_w4a8_matmul, K.quant_w4a8_matmul_ref, True)}
+    rows = {}
+    for key, (fn, ref, packed) in kernels.items():
+        err = 0.0
+        for i, (lead, k, n) in enumerate(shapes[key]):
+            x, wq, sw, b = kernel_inputs(lead, k, n, seed=500 + i, device=device, packed=packed)
+            for bias in (b, None):
+                before = fn.launches
+                y = fn(x, wq, sw, bias).reshape(-1, n)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                    if fn.launches != before + 1:
+                        raise RuntimeError(f"the {fn.__name__} wrapper did not count its launch")
+                want = ref(x.reshape(-1, k), wq, sw,
+                           b if bias is not None else torch.zeros_like(b))
+                e = (y - want).abs().max().item()
+                ok = torch.equal(y, want) and bool(torch.isfinite(y).all())
+                print(f"kernels {fn.__name__} {tuple(x.shape)} x {tuple(wq.shape)} bias "
+                      f"{bias is not None}: max_abs_err {e} bit-equal {ok}", flush=True)
+                if not ok:
+                    raise AssertionError(f"{fn.__name__} and its plain version differ at "
+                                         f"{tuple(x.shape)}")
+                err = max(err, e)
+        lead, k, n = time_shape
+        x, wq, sw, b = kernel_inputs(lead, k, n, seed=599, device=device, packed=packed)
+        x2 = x.reshape(-1, k)
+        m = x2.shape[0]
+        w8 = unpack_int4(wq) if packed else wq
+        xq = torch.round(x2 / (x2.abs().amax(-1, keepdim=True).clamp_min(1e-5) / 127)).to(
+            torch.int8)
+        t_int_mm = cuda_ms(lambda: K.int_mm(xq, w8))
+        t_plain_a = cuda_ms(lambda: ref(x2, wq, sw, b))
+        t_kernel = cuda_ms(lambda: fn(x, wq, sw, b))
+        t_plain_b = cuda_ms(lambda: ref(x2, wq, sw, b))
+        bms, by = bound_ms(m, k, n, 4 * n, wq.numel())
+        rows[key] = {"ms": t_kernel, "plain_ms": min(t_plain_a, t_plain_b), "bound_ms": bms,
+                     "bound_by": by, "max_abs_err": err,
                      "partial_yardstick": {"call": "torch._int_mm", "ms": t_int_mm}}
         print(f"time {fn.__name__} at [{m},{k}]x[{k},{n}]: kernel {t_kernel:.6f} ms, "
               f"plain {t_plain_a:.6f}/{t_plain_b:.6f} ms, bound {bms:.6f} ms ({by}); "
@@ -528,12 +621,115 @@ def run_serving_path(device, base: dict, max_len: int, card: str = "") -> dict:
           f"{agree_c}", flush=True)
     if agree < 0.95 or agree_c < 0.95:
         raise AssertionError(f"token agreement {agree} / {agree_c} < 0.95")
+    # the same decode with K3's plain version in K3's place: does K3 itself
+    # move the agreement with the int8 decode?  (printed, no gate)
+    from onnx_transformer_tpu_torch.models import transformer as PT
+
+    kernel_attn = PT.decode_attention_int8
+    PT.decode_attention_int8 = KA.decode_attention_int8_ref
+    try:
+        ysr, launches_r = counted(lambda: decode(linp, True))
+    finally:
+        PT.decode_attention_int8 = kernel_attn
+    agree_r = (ysr == ys8).float().mean().item()
+    agree_rk = (ysr == ys).float().mean().item()
+    print(f"serving path with K3's plain version (launches {launches_r}): token agreement "
+          f"with the int8 decode {agree_r} (with K3: {agree}); with the K3 decode "
+          f"{agree_rk}", flush=True)
     tokens = batch * max_len
     print(f"serving path B={batch} S={src_len} max_len={max_len}: {dt:.6f} s per decode, "
           f"{dt / max_len * 1e3:.6f} ms per step, {tokens / dt:.3f} tokens/s on {card}",
           flush=True)
     profile_decode(lambda: decode(linp, True), torch.cuda.synchronize, dt)
-    return {"launches": launches, "seconds": dt, "agree": agree, "agree_chunked": agree_c}
+    return {"launches": launches, "seconds": dt, "agree": agree, "agree_chunked": agree_c,
+            "agree_plain_attn": agree_r}
+
+
+MATMUL_COUNTERS = {"qout": "quant_w8a8_matmul_qout", "q8": "quant_w8a8_matmul_q8",
+                   "w8a8": "w8a8_matmul", "qgemm": "quant_w8a8_matmul",
+                   "qout4": "quant_w4a8_matmul_qout", "q84": "quant_w4a8_matmul_q8",
+                   "qgemm4": "quant_w4a8_matmul"}
+
+
+def int4_stacked(model, params, payloads4: dict) -> dict:
+    """``build_stacked`` over the unpacked int4 values, as bench.py's int4
+    row builds it."""
+    import onnx_transformer_tpu_torch as P
+    from onnx_transformer_tpu_torch.quant.core import unpack_int4
+
+    return P.build_stacked(model, params, {
+        name: {"wq": unpack_int4(p["wq_packed"]), "sw": p["sw"], "b": p["b"]}
+        for name, p in payloads4.items()})
+
+
+def run_int4_path(device, base: dict, max_len: int, chunk: int, card: str = "") -> dict:
+    """bench.py's int4 row: packed-int4 payloads, the W4A8 impl (K6 for the
+    encoder's q/k/v, K7 for the cross-K/V) and the chunk-staged decode over
+    the unpacked int4 values."""
+    import torch
+
+    import onnx_transformer_tpu_torch as P
+    from onnx_transformer_tpu_torch.ops.kernels import decode_attention as KA
+    from onnx_transformer_tpu_torch.ops.kernels import w8a8_matmul as KM
+
+    model, sp, src, sm = (base[k] for k in ("model", "params", "src", "src_mask"))
+    n = model.cfg.num_layers
+    batch, src_len = src.shape
+    pl4 = P.quantize_model_params_int4(model, sp)
+    lin4 = P.make_w4a8_linear_impl(pl4)
+    lin4x = P.make_w4a8_linear_impl(pl4, fused=False)
+    stacked4 = int4_stacked(model, sp, pl4)
+    counters = {k: getattr(KM, v) for k, v in MATMUL_COUNTERS.items()}
+    counters["attn"] = KA.decode_attention_int8
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+    def decode(lin):
+        return P.greedy_decode_chunked(model, sp, stacked4, src, sm, max_len, chunk=chunk,
+                                       lin=lin)
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        sync()
+        return out, {k: c.launches for k, c in counters.items()}
+
+    decode(lin4)  # warm-up
+    sync()
+    t0 = time.perf_counter()
+    ys, launches = counted(lambda: decode(lin4))
+    dt = time.perf_counter() - t0
+    want = dict.fromkeys(counters, 0)
+    want.update(qout4=3 * n, q84=2 * n)
+    print(f"int4 path launches per decode: {launches} (expected {want})", flush=True)
+    if launches != want:
+        raise AssertionError(f"expected launches {want}, got {launches}")
+    if tuple(ys.shape) != (batch, max_len) or not bool((ys[:, 0] == 0).all()):
+        raise AssertionError(f"bad decode output shape {tuple(ys.shape)}")
+    if int(ys.min()) < 0 or int(ys.max()) >= model.cfg.tgt_vocab_size:
+        raise AssertionError("token id out of range")
+
+    mem_k = model.encode(sp, src, sm, lin=lin4)
+    mem_x = model.encode(sp, src, sm, lin=lin4x)
+    if not bool(torch.isfinite(mem_k).all()):
+        raise AssertionError("encoder memory is not finite")
+    torch.testing.assert_close(mem_k, mem_x, atol=1e-4, rtol=1e-5)
+    ysx, launches_x = counted(lambda: decode(lin4x))
+    if any(launches_x.values()):
+        raise AssertionError(f"the non-fused int4 decode launched {launches_x}")
+    agree = (ys == ysx).float().mean().item()
+    print(f"int4 path K6/K7 vs non-fused: memory equal {torch.equal(mem_k, mem_x)} "
+          f"max_abs_diff {(mem_k - mem_x).abs().max().item()} token agreement {agree}",
+          flush=True)
+    if agree < 0.95:
+        raise AssertionError(f"token agreement {agree} < 0.95")
+    tokens = batch * max_len
+    print(f"int4 path B={batch} S={src_len} max_len={max_len} chunk={chunk}: "
+          f"{dt:.6f} s per decode, {dt / max_len * 1e3:.6f} ms per step, "
+          f"{tokens / dt:.3f} tokens/s on {card}", flush=True)
+    if device.type == "cuda":
+        profile_decode(lambda: decode(lin4), sync, dt)
+    return {"launches": launches, "seconds": dt, "agree": agree}
 
 
 def run_reference(device) -> float:
@@ -544,11 +740,15 @@ def run_reference(device) -> float:
     import onnx_transformer_tpu_torch as P
     from onnx_transformer_tpu_torch.ops import layers as L
 
+    from onnx_transformer_tpu_torch.ops.kernels import w8a8_matmul as KM
+    from onnx_transformer_tpu_torch.quant import w8a8 as W8
+
     cfg = P.TransformerConfig(37, 31, num_layers=3, d_model=32, d_ff=64, num_heads=4)
     model = P.Transformer(cfg)
     params_cpu = model.init(seed=7, device="cpu")
     src_cpu = make_source(24, 9, 37, seed=5, device="cpu")
     out = {}
+    before = (KM.quant_w4a8_matmul_qout.launches, KM.quant_w4a8_matmul_q8.launches)
     for dev in (torch.device("cpu"), device):
         params = P.params_from_jax(params_cpu, device=dev)
         sp, lin = P.quantize_transformer(model, params, mode="fused")
@@ -556,13 +756,32 @@ def run_reference(device) -> float:
         stacked = P.build_stacked(model, sp, lin.payloads)
         src = src_cpu.to(dev)
         sm = L.make_src_mask(src)
-        out[dev.type] = (
-            P.greedy_decode_chunked(model, sp, stacked, src, sm, 12, chunk=4, lin=lin).cpu(),
+        decodes = [
+            P.greedy_decode_chunked(model, sp, stacked, src, sm, 12, chunk=4, lin=lin),
             P.greedy_decode(model, sp, src, sm, 12, lin=linp, kv_cache_dtype="int8",
-                            fused_attn=True).cpu())
-    agree = min((a == b).float().mean().item() for a, b in zip(out["cpu"], out[device.type]))
+                            fused_attn=True)]
+        # the int4 decodes with K6/K7 taking every q/k/v and cross-K/V call
+        pl4 = P.quantize_model_params_int4(model, sp)
+        lin4 = P.make_w4a8_linear_impl(pl4)
+        stacked4 = int4_stacked(model, sp, pl4)
+        old = W8.FUSED_MIN_TOKENS
+        W8.FUSED_MIN_TOKENS = 1
+        try:
+            decodes += [
+                P.greedy_decode_chunked(model, sp, stacked4, src, sm, 12, chunk=4, lin=lin4),
+                P.greedy_decode(model, sp, src, sm, 12, lin=lin4, kv_cache_dtype="int8")]
+        finally:
+            W8.FUSED_MIN_TOKENS = old
+        out[dev.type] = [ys.cpu() for ys in decodes]
+    k67 = (KM.quant_w4a8_matmul_qout.launches - before[0],
+           KM.quant_w4a8_matmul_q8.launches - before[1])
+    if device.type == "cuda" and min(k67) == 0:
+        raise AssertionError(f"the small int4 decodes launched K6/K7 {k67} times")
+    agrees = [(a == b).float().mean().item() for a, b in zip(out["cpu"], out[device.type])]
+    agree = min(agrees)
     print(f"reference small model {device.type} vs cpu token agreement (chunk-staged, "
-          f"KV-cached pallas+K3) {agree}", flush=True)
+          f"KV-cached pallas+K3, int4 chunk-staged, int4 KV-cached; K6/K7 launches {k67}) "
+          f"{agrees}", flush=True)
     if agree < 0.95:
         raise AssertionError(f"card and CPU decodes agree on {agree} < 0.95 of tokens")
     return agree
@@ -609,6 +828,15 @@ def main() -> int:
                              [((512,), 512, 512), ((36864,), 512, 2048)]))
         rows.update(check_k3(device, [(512, 72, 512, 8), (3, 72, 512, 8), (3, 1, 512, 8),
                                       (4, 1024, 512, 8), (2, 9, 18, 3)], (512, 72, 512, 8)))
+        rows.update(check_kernels(device, [((512, 72), 512, 512), ((1000,), 512, 512),
+                                           ((24,), 64, 96), ((64,), 2048, 512),
+                                           ((64,), 512, 2048)], ((512, 72), 512, 512),
+                                  packed=True))
+        common = [((36864,), 512, 2048), ((512,), 512, 512), ((1,), 300, 96),
+                  ((4, 15), 128, 128)]
+        rows.update(check_quant_gemm(
+            device, {"qgemm": common + [((24,), 16384, 96), ((16,), 9728, 64)],
+                     "qgemm4": common}, ((36864,), 512, 2048)))
 
     with phase("main path"):
         base = build_iwslt(device, num_layers=6, batch=512, src_len=72)
@@ -617,20 +845,26 @@ def main() -> int:
     with phase("serving path"):
         serve_res = run_serving_path(device, base, max_len=72, card=card)
 
+    with phase("int4 path"):
+        int4_res = run_int4_path(device, base, max_len=72, chunk=8, card=card)
+
     with phase("reference"):
         run_reference(device)
 
     signal.alarm(0)
     faulthandler.cancel_dump_traceback_later()
-    # launches: K1/K2 on the chunk-staged main path, K3/K5 on the serving path;
-    # no single PyTorch call computes any of them, so library_ms is null and
-    # the partial yardstick stands beside it
+    # launches: K1/K2 on the chunk-staged main path, K3/K5 on the serving path,
+    # K6/K7 on the int4 path; K4/K8 have no caller on any path (as in the JAX
+    # package).  No single PyTorch call computes any of them, so library_ms is
+    # null and the partial yardstick stands beside it
     kernels = []
     for key, res in (("qout", main_res), ("q8", main_res), ("attn", serve_res),
-                     ("w8a8", serve_res)):
+                     ("w8a8", serve_res), ("qout4", int4_res), ("q84", int4_res),
+                     ("qgemm", None), ("qgemm4", None)):
         name_k, source, replaces = KERNELS[key]
         kernels.append({"name": name_k, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": res["launches"][key],
+                        "replaces": replaces,
+                        "launches": res["launches"][key] if res is not None else 0,
                         **rows[key], "library_ms": None})
     print(f"card {card}")
     print(json.dumps({"kernels": kernels}))

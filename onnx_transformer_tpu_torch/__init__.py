@@ -1,18 +1,24 @@
 """PyTorch/CUDA port of ``onnx_transformer_tpu``.
 
 Imports ``torch`` and numpy only: nothing of JAX and nothing of the JAX
-package.  It covers two serving paths of the IWSLT14 model:
+package.  It covers three serving paths of the IWSLT14 model:
 
 - the W8A8 int8-KV chunk-staged greedy decode (``greedy_decode_chunked``):
   encoder, cross-K/V producer, SmoothQuant, W8A8 linears and the decode
   loop, with the fused quantize-matmul kernels K1/K2;
+- the same decode with packed-int4 weights and int8 activations (W4A8:
+  ``quantize_model_params_int4``, ``make_w4a8_linear_impl``), whose prefill
+  runs the packed-int4 kernels K6/K7; ``make_qat_linear_impl`` is its
+  differentiable fake-quant counterpart for training;
 - the KV-cached decode of ``serving.decode`` (``greedy_decode``, its early
   exit, the no-cache oracle, ``beam_decode``) over an fp32 or int8 cache,
   with the int8-cache attention kernel K3 (``fused_attn=True``) and the
   W8A8 matmul kernel K5 (W8A8 mode ``pallas``).
 
-K1, K2, K3 and K5 are CUDA kernels hand-written for Hopper; on CPU tensors
-each wrapper takes its plain PyTorch version.
+K4 and K8 (the per-token quantize fused into K5's product, over int8 or
+packed-int4 weights) have no caller on these paths, as in the JAX package.
+All eight are CUDA kernels hand-written for Hopper; on CPU tensors each
+wrapper takes its plain PyTorch version.
 """
 
 import torch
@@ -36,6 +42,10 @@ from onnx_transformer_tpu_torch.ops.kernels.decode_attention import (  # noqa: E
     decode_attention_int8,
 )
 from onnx_transformer_tpu_torch.ops.kernels.w8a8_matmul import (  # noqa: E402
+    quant_w4a8_matmul,
+    quant_w4a8_matmul_q8,
+    quant_w4a8_matmul_qout,
+    quant_w8a8_matmul,
     quant_w8a8_matmul_q8,
     quant_w8a8_matmul_qout,
     w8a8_matmul,
@@ -43,6 +53,11 @@ from onnx_transformer_tpu_torch.ops.kernels.w8a8_matmul import (  # noqa: E402
 from onnx_transformer_tpu_torch.params import (  # noqa: E402
     load_checkpoint_params,
     params_from_jax,
+)
+from onnx_transformer_tpu_torch.quant.int4 import (  # noqa: E402
+    make_qat_linear_impl,
+    make_w4a8_linear_impl,
+    quantize_model_params_int4,
 )
 from onnx_transformer_tpu_torch.quant.smoothquant import (  # noqa: E402
     load_reference_scales,
@@ -63,9 +78,11 @@ from onnx_transformer_tpu_torch.serving.decode import (  # noqa: E402
 __all__ = [
     "Transformer", "TransformerConfig", "default_linear", "build_stacked",
     "greedy_decode_chunked", "quant_w8a8_matmul_qout", "quant_w8a8_matmul_q8",
-    "w8a8_matmul", "decode_attention_int8", "greedy_decode", "greedy_decode_early_exit",
+    "w8a8_matmul", "quant_w8a8_matmul", "quant_w4a8_matmul_qout", "quant_w4a8_matmul_q8",
+    "quant_w4a8_matmul", "decode_attention_int8", "greedy_decode", "greedy_decode_early_exit",
     "greedy_decode_nocache", "beam_decode", "ids_to_tokens",
     "params_from_jax", "load_checkpoint_params", "load_reference_scales",
     "smooth_params", "make_w8a8_linear_impl", "quantize_transformer",
+    "quantize_model_params_int4", "make_w4a8_linear_impl", "make_qat_linear_impl",
     "resolve_device",
 ]

@@ -1,9 +1,18 @@
-// Fused W8A8 quantize-matmul kernels for Hopper (sm_90a), with a plain C
-// interface for ctypes.
+// Fused W8A8 and W4A8 quantize-matmul kernels for Hopper (sm_90a), with a
+// plain C interface for ctypes.
 //
 // Replaces the TPU kernels of onnx_transformer_tpu/ops/pallas/w8a8_matmul.py:
 //   K1 quant_w8a8_qout <- quant_w8a8_matmul_qout / _quant_w8a8_kernel_qout
 //   K2 quant_w8a8_q8   <- quant_w8a8_matmul_q8   / _quant_w8a8_kernel_q8
+//   K6 quant_w4a8_qout <- quant_w4a8_matmul_qout / _quant_w4a8_kernel_qout
+//   K7 quant_w4a8_q8   <- quant_w4a8_matmul_q8   / _quant_w4a8_kernel_q8
+//
+// K6/K7 take the weights as packed int4: uint8 [K/2,N], byte r of a column
+// holding row 2r in its low nibble and row 2r+1 in its high one, both
+// sign-extended (quant/core.pack_int4).  They unpack while staging a W tile
+// into shared memory, into the same words of 4 int8 k that K1/K2 build, so
+// everything else is shared; no unpacked weight tensor exists in memory.
+// K is even, and a tile of kTK = 64 rows is 32 packed rows.
 //
 // Both compute, for x f32 [M,K], wq int8 [K,N], sw and b f32 [N]:
 //   sx  = max(absmax_k |x[m,k]|, 1e-5) / 127            (per token)
@@ -56,9 +65,40 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <int BM, bool kQ8>
+// The W tile load: 4 consecutive k (k0 + 4*kq + i, i = 0..3, k0 + 4*kq even)
+// of 4 columns, one int8 per byte of each column's word.  Rows past K and
+// columns past N are zero, which adds nothing to the products.
+template <bool kInt4>
+__device__ __forceinline__ void load_w_words(const unsigned char* __restrict__ w, int k,
+                                             int n0, int K, int N, unsigned int w4[4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int n = n0 + c;
+    unsigned int word = 0u;
+    if (n < N) {
+      if (kInt4) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          if (k + 2 * j < K) {   // K even: rows k+2j and k+2j+1 share a byte
+            const unsigned int p = w[(size_t)((k >> 1) + j) * N + n];
+            const unsigned int lo = ((p & 0xFu) ^ 8u) - 8u;   // sign-extend
+            const unsigned int hi = ((p >> 4) ^ 8u) - 8u;
+            word |= ((lo & 0xFFu) | ((hi & 0xFFu) << 8)) << (16 * j);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (k + i < K) word |= static_cast<unsigned int>(w[(size_t)(k + i) * N + n]) << (8 * i);
+      }
+    }
+    w4[c] = word;
+  }
+}
+
+template <int BM, bool kQ8, bool kInt4>
 __global__ void __launch_bounds__(kThreads)
-quant_w8a8_kernel(const float* __restrict__ x, const int8_t* __restrict__ wq,
+quant_w8a8_kernel(const float* __restrict__ x, const unsigned char* __restrict__ wq,
                   const float* __restrict__ sw, const float* __restrict__ bias,
                   float* __restrict__ out, int8_t* __restrict__ outq,
                   float* __restrict__ outs, int M, int K, int N, int Kp) {
@@ -110,18 +150,8 @@ quant_w8a8_kernel(const float* __restrict__ x, const int8_t* __restrict__ wq,
     for (int i = 0; i < R; ++i) acc[i] = 0;
     for (int k0 = 0; k0 < Kp; k0 += kTK) {
       __syncthreads();  // Phase A done / previous tile consumed
-      unsigned int w4[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k = k0 + 4 * kq + i;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int n = n0 + 4 * nq + c;
-          unsigned int byte = 0u;
-          if (k < K && n < N) byte = static_cast<unsigned char>(wq[(size_t)k * N + n]);
-          w4[c] |= byte << (8 * i);
-        }
-      }
+      unsigned int w4[4];
+      load_w_words<kInt4>(wq, k0 + 4 * kq, n0 + 4 * nq, K, N, w4);
 #pragma unroll
       for (int c = 0; c < 4; ++c) wt[(4 * nq + c) * kWStride + kq] = static_cast<int>(w4[c]);
       __syncthreads();
@@ -175,21 +205,36 @@ quant_w8a8_kernel(const float* __restrict__ x, const int8_t* __restrict__ wq,
   }
 }
 
-template <int BM, bool kQ8>
-int launch(const float* x, const int8_t* wq, const float* sw, const float* b,
+template <int BM, bool kQ8, bool kInt4>
+int launch(const float* x, const void* wq, const float* sw, const float* b,
            float* out, int8_t* outq, float* outs, int M, int K, int N,
            cudaStream_t stream) {
   const int Kp = (K + kTK - 1) / kTK * kTK;
   const size_t smem = (size_t)BM * N * sizeof(float) + (size_t)kTN * kWStride * sizeof(int) +
                       (size_t)BM * sizeof(float) + (size_t)BM * Kp;
-  cudaError_t err = cudaFuncSetAttribute(quant_w8a8_kernel<BM, kQ8>,
+  cudaError_t err = cudaFuncSetAttribute(quant_w8a8_kernel<BM, kQ8, kInt4>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (M + BM - 1) / BM;
-  quant_w8a8_kernel<BM, kQ8><<<grid, kThreads, smem, stream>>>(
-      x, wq, sw, b, out, outq, outs, M, K, N, Kp);
+  quant_w8a8_kernel<BM, kQ8, kInt4><<<grid, kThreads, smem, stream>>>(
+      x, static_cast<const unsigned char*>(wq), sw, b, out, outq, outs, M, K, N, Kp);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kQ8, bool kInt4>
+int launch_rows(const void* x, const void* w, const void* sw, const void* b, void* out,
+                void* outq, void* outs, int M, int K, int N, void* stream) {
+  auto xs = static_cast<const float*>(x);
+  auto sws = static_cast<const float*>(sw);
+  auto bs = static_cast<const float*>(b);
+  auto os = static_cast<float*>(out);
+  auto oq = static_cast<int8_t*>(outq);
+  auto ss = static_cast<float*>(outs);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || K <= 0 || N <= 0 || (kInt4 && K % 2)) return static_cast<int>(cudaErrorInvalidValue);
+  return N > 1024 ? launch<16, kQ8, kInt4>(xs, w, sws, bs, os, oq, ss, M, K, N, st)
+                  : launch<32, kQ8, kInt4>(xs, w, sws, bs, os, oq, ss, M, K, N, st);
 }
 
 }  // namespace
@@ -198,27 +243,26 @@ int launch(const float* x, const int8_t* wq, const float* sw, const float* b,
 extern "C" int quant_w8a8_qout(const void* x, const void* wq, const void* sw,
                                const void* b, void* out, int M, int K, int N,
                                void* stream) {
-  auto xs = static_cast<const float*>(x);
-  auto ws = static_cast<const int8_t*>(wq);
-  auto sws = static_cast<const float*>(sw);
-  auto bs = static_cast<const float*>(b);
-  auto os = static_cast<float*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  return N > 1024 ? launch<16, false>(xs, ws, sws, bs, os, nullptr, nullptr, M, K, N, st)
-                  : launch<32, false>(xs, ws, sws, bs, os, nullptr, nullptr, M, K, N, st);
+  return launch_rows<false, false>(x, wq, sw, b, out, nullptr, nullptr, M, K, N, stream);
 }
 
 // K2: outq int8 [M,N] and outs f32 [M].  Returns a cudaError_t (0 = launched).
 extern "C" int quant_w8a8_q8(const void* x, const void* wq, const void* sw,
                              const void* b, void* outq, void* outs, int M, int K,
                              int N, void* stream) {
-  auto xs = static_cast<const float*>(x);
-  auto ws = static_cast<const int8_t*>(wq);
-  auto sws = static_cast<const float*>(sw);
-  auto bs = static_cast<const float*>(b);
-  auto oq = static_cast<int8_t*>(outq);
-  auto os = static_cast<float*>(outs);
-  auto st = static_cast<cudaStream_t>(stream);
-  return N > 1024 ? launch<16, true>(xs, ws, sws, bs, nullptr, oq, os, M, K, N, st)
-                  : launch<32, true>(xs, ws, sws, bs, nullptr, oq, os, M, K, N, st);
+  return launch_rows<true, false>(x, wq, sw, b, nullptr, outq, outs, M, K, N, stream);
+}
+
+// K6: K1 over packed-int4 weights wp uint8 [K/2,N]; K even.
+extern "C" int quant_w4a8_qout(const void* x, const void* wp, const void* sw,
+                               const void* b, void* out, int M, int K, int N,
+                               void* stream) {
+  return launch_rows<false, true>(x, wp, sw, b, out, nullptr, nullptr, M, K, N, stream);
+}
+
+// K7: K2 over packed-int4 weights wp uint8 [K/2,N]; K even.
+extern "C" int quant_w4a8_q8(const void* x, const void* wp, const void* sw,
+                             const void* b, void* outq, void* outs, int M, int K,
+                             int N, void* stream) {
+  return launch_rows<true, true>(x, wp, sw, b, nullptr, outq, outs, M, K, N, stream);
 }

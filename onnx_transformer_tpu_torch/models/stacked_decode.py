@@ -7,6 +7,10 @@ self-attention takes ONE softmax over the score columns of the main cache
 and the in-flight rows together, which is the same as attending over a
 cache that holds all of them.  At the chunk boundary the C rows land in the
 main cache with one slice write per buffer (``flush_inflight``, in place).
+With ``segments > 1`` the self-K/V cache grows at segment boundaries instead
+of being allocated at ``max_len`` up front, so each segment's steps read only
+the prefix that can be valid; the masked tail columns add exact zeros to
+the softmax, so the tokens are the same.
 
 Numerics are the W8A8 chain of ``quant/w8a8.py`` with all-int8-operand
 attention: the query and the K/V rows are int8 with per-token scales, the
@@ -149,15 +153,17 @@ def _qdot_attn(qi, sq, kq, ks, vq, vs, mask, num_heads: int, quantize: bool):
 
 def layer_stack_step_inflight(stacked: dict, cache_layers: list, inflight,
                               x: torch.Tensor, vis_cache: torch.Tensor,
-                              smask: torch.Tensor, num_heads: int, quantize: bool):
+                              vis_stg, smask: torch.Tensor, num_heads: int,
+                              quantize: bool):
     """One token through the decoder stack.
 
     ``cache_layers``: per layer the main int8 self cache (k/v [B,T,D],
     k_scale/v_scale [B,T,1]) and the cross cache (cross_*).  ``inflight``:
     per layer the rows staged earlier in this chunk ({"k","v": [B,j,D] int8,
-    "ks","vs": [B,j]}), or None at the chunk's first step; all of them are
-    visible.  This step's K/V rows are appended to it.  Returns
-    (x [B, D], new inflight)."""
+    "ks","vs": [B,j]}), or None at the chunk's first step.  This step's K/V
+    rows are appended to it.  ``vis_stg`` bool [B, j+1] says which staged
+    rows, this step's included, each row may see; None means all of them.
+    Returns (x [B, D], new inflight)."""
     new_inflight = []
     d = x.shape[-1]
     for lp, lc, fl in zip(stacked["layers"], cache_layers,
@@ -173,7 +179,7 @@ def layer_stack_step_inflight(stacked: dict, cache_layers: list, inflight,
         groups = [
             {"k": lc["k"], "ks": lc["k_scale"][..., 0], "v": lc["v"],
              "vs": lc["v_scale"][..., 0], "vis": vis_cache},
-            {"k": fl["k"], "ks": fl["ks"], "v": fl["v"], "vs": fl["vs"], "vis": None},
+            {"k": fl["k"], "ks": fl["ks"], "v": fl["v"], "vs": fl["vs"], "vis": vis_stg},
         ]
         ctx = _attn_groups(qi, sq, groups, num_heads, quantize)
         x = x + _w8a8(ctx, lp["self_o"])
@@ -208,57 +214,88 @@ def embed_token(stacked: dict, cfg, tok: torch.Tensor, pos: int) -> torch.Tensor
     return x + pe[pos]
 
 
-def final_logits(stacked: dict, x: torch.Tensor) -> torch.Tensor:
+def final_logits(stacked: dict, x: torch.Tensor, log_probs: bool = False) -> torch.Tensor:
     x = _ln(x, stacked["final_ln"])
     gen = stacked["generator"]
-    return _w8a8(x, gen) if "wq" in gen else L.linear(x, gen["w"], gen["b"])
+    logits = _w8a8(x, gen) if "wq" in gen else L.linear(x, gen["w"], gen["b"])
+    return L.log_softmax(logits) if log_probs else logits
+
+
+def _segment_bounds(n_chunks: int, segments: int, chunk: int) -> list:
+    """The step at which each segment ends: the chunks shared out as evenly
+    as they go, the earlier segments taking one more."""
+    per, extra = divmod(n_chunks, segments)
+    bounds, acc = [], 0
+    for s in range(segments):
+        acc += per + (1 if s < extra else 0)
+        bounds.append(acc * chunk)
+    return bounds
+
+
+def _grow(self_layers: list, b: int, t: int, d: int, dev) -> list:
+    """Self-K/V buffers of length ``t`` holding the old ones' rows in front
+    and zeros after them."""
+    out = []
+    for old in self_layers:
+        new = {"k": torch.zeros((b, t, d), dtype=torch.int8, device=dev),
+               "v": torch.zeros((b, t, d), dtype=torch.int8, device=dev),
+               "k_scale": torch.zeros((b, t, 1), device=dev),
+               "v_scale": torch.zeros((b, t, 1), device=dev)}
+        if old is not None:
+            for key, buf in new.items():
+                buf[:, :old[key].shape[1]] = old[key]
+        out.append(new)
+    return out
 
 
 @torch.no_grad()
 def greedy_decode_chunked(model: Transformer, params, stacked: dict,
                           src: torch.Tensor, src_mask: torch.Tensor, max_len: int,
-                          chunk: int = 8, lin=None,
-                          stop_at_eos: bool = True) -> torch.Tensor:
+                          chunk: int = 8, start_symbol: int = 0, lin=None,
+                          stop_at_eos: bool = True, segments: int = 1) -> torch.Tensor:
     """Lockstep greedy decode with chunk-staged cache writes -> int32
-    [B, max_len], the first column BOS.  ``max_len`` must be divisible by
-    ``chunk``.  With ``stop_at_eos`` a row emits PAD after its EOS."""
+    [B, max_len], the first column ``start_symbol``.  ``max_len`` must be
+    divisible by ``chunk``.  With ``stop_at_eos`` a row emits PAD after its
+    EOS.  ``segments > 1`` grows the self-K/V cache at that many segment
+    boundaries (same tokens)."""
     if max_len % chunk:
         raise ValueError(f"max_len {max_len} must be divisible by chunk {chunk}")
     cfg = model.cfg
     lin = lin or default_linear
     b = src.shape[0]
     dev = src.device
+    n_chunks = max_len // chunk
+    segments = max(1, min(segments, n_chunks))
     memory = model.encode(params, src, src_mask, lin=lin)
     cross_layers = model.cross_kv(params, memory, lin=lin, cache_dtype="int8")
-    cache_layers = [
-        dict(cl,
-             k=torch.zeros((b, max_len, cfg.d_model), dtype=torch.int8, device=dev),
-             v=torch.zeros((b, max_len, cfg.d_model), dtype=torch.int8, device=dev),
-             k_scale=torch.zeros((b, max_len, 1), device=dev),
-             v_scale=torch.zeros((b, max_len, 1), device=dev))
-        for cl in cross_layers]
     smask = src_mask[:, 0, :] if src_mask.ndim == 3 else src_mask
     h, quant = cfg.num_heads, cfg.quantize_attn_probs
     # C columns of scratch past max_len take the last chunk's overhang
     ys = torch.full((b, max_len + chunk), cfg.pad_id, dtype=torch.int32, device=dev)
-    ys[:, 0] = cfg.bos_id
+    ys[:, 0] = start_symbol
     finished = torch.zeros(b, dtype=torch.bool, device=dev)
     last = ys[:, 0]
-    pos_t = torch.arange(max_len, device=dev)
-    for base in range(0, max_len, chunk):
-        vis_cache = (pos_t < base)[None, :].expand(b, max_len)
-        inflight = None
-        outs = []
-        for j in range(chunk):
-            x = embed_token(stacked, cfg, last[:, None], base + j)
-            x, inflight = layer_stack_step_inflight(
-                stacked, cache_layers, inflight, x, vis_cache, smask, h, quant)
-            nxt = torch.argmax(final_logits(stacked, x), dim=-1).to(torch.int32)
-            if stop_at_eos:
-                nxt = torch.where(finished, torch.full_like(nxt, cfg.pad_id), nxt)
-                finished = finished | (nxt == cfg.eos_id)
-            outs.append(nxt)
-            last = nxt
-        ys[:, base + 1:base + 1 + chunk] = torch.stack(outs, dim=1)
-        flush_inflight(cache_layers, inflight, base)
+    self_layers = [None] * len(cross_layers)
+    prev_end = 0
+    for seg_end in _segment_bounds(n_chunks, segments, chunk):
+        self_layers = _grow(self_layers, b, seg_end, cfg.d_model, dev)
+        cache_layers = [dict(cl, **sl) for cl, sl in zip(cross_layers, self_layers)]
+        pos_t = torch.arange(seg_end, device=dev)
+        for base in range(prev_end, seg_end, chunk):
+            vis_cache = (pos_t < base)[None, :].expand(b, seg_end)
+            inflight = None
+            outs = []
+            for j in range(chunk):
+                x = embed_token(stacked, cfg, last[:, None], base + j)
+                x, inflight = layer_stack_step_inflight(
+                    stacked, cache_layers, inflight, x, vis_cache, None, smask, h, quant)
+                nxt = torch.argmax(final_logits(stacked, x), dim=-1).to(torch.int32)
+                if stop_at_eos:
+                    nxt = torch.where(finished, torch.full_like(nxt, cfg.pad_id), nxt)
+                    finished = finished | (nxt == cfg.eos_id)
+                outs.append(nxt)
+                last = nxt
+            ys[:, base + 1:base + 1 + chunk] = torch.stack(outs, dim=1)
+            flush_inflight(cache_layers, inflight, base)
+        prev_end = seg_end
     return ys[:, :max_len]

@@ -28,6 +28,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SIGNATURES = {
     "quant_w8a8_qout": "pppppiiip",
     "quant_w8a8_q8": "ppppppiiip",
+    "quant_w4a8_qout": "pppppiiip",
+    "quant_w4a8_q8": "ppppppiiip",
+    "quant_w8a8_gemm": "pppppiiip",
+    "quant_w4a8_gemm": "pppppiiip",
     "w8a8_gemm": "ppppppiiip",
     "decode_attention_int8": "pppppppiiiifip",
 }

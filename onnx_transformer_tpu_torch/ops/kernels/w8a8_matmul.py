@@ -1,15 +1,21 @@
-"""The W8A8 matmul kernels (ports of ``onnx_transformer_tpu/ops/pallas/w8a8_matmul.py``).
+"""The W8A8 and W4A8 matmul kernels (ports of ``onnx_transformer_tpu/ops/pallas/w8a8_matmul.py``).
 
 - K1 ``quant_w8a8_matmul_qout`` and K2 ``quant_w8a8_matmul_q8``: fused
   per-token quantize + int8 matmul + per-token output quantization
-  (``csrc/w8a8_matmul.cu``).
+  (``csrc/w8a8_matmul.cu``); K6 ``quant_w4a8_matmul_qout`` and K7
+  ``quant_w4a8_matmul_q8`` are the same over packed-int4 weights (uint8
+  [K/2, N] nibble pairs, ``quant.core.pack_int4``), in the same source.
 - K5 ``w8a8_matmul``: int8 matmul of pre-quantized activations with the
   ``acc * (sx * sw) + b`` epilogue (``csrc/w8a8_gemm.cu``).
+- K4 ``quant_w8a8_matmul`` and K8 ``quant_w4a8_matmul``: the per-token
+  quantize fused in front of K5's product and epilogue, over int8 or
+  packed-int4 weights, at any K (``csrc/quant_gemm.cu``).
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and counts the
 launch in its ``launches`` attribute; for a CPU tensor it takes the plain
 PyTorch version (``*_ref``) beside it, which the card check also holds the
-kernel against, bit for bit.
+kernel against, bit for bit.  Weight operands (``wq``/``wp``, ``sw``, ``b``)
+must be contiguous and on the input's device; the input is made contiguous.
 """
 
 from __future__ import annotations
@@ -17,9 +23,10 @@ from __future__ import annotations
 import torch
 
 from onnx_transformer_tpu_torch.ops.kernels.build import launch
-from onnx_transformer_tpu_torch.quant.core import act_scale_per_token, quantize
+from onnx_transformer_tpu_torch.quant.core import act_scale_per_token, quantize, unpack_int4
 
-MAX_KN = 2048   # the TPU kernels' single-block limit on K and N
+MAX_KN = 2048      # K1/K2/K6/K7: the TPU kernels' single-block limit on K and N
+MAX_K_W4A8 = 4096  # K8: the TPU kernel's limit on K
 
 
 def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -75,11 +82,38 @@ def w8a8_matmul_ref(xq2: torch.Tensor, sx1: torch.Tensor, wq: torch.Tensor,
     return acc.float() * (sx1[:, None] * sw[None, :]) + b[None, :]
 
 
-def _check_w(k: int, wq, sw, b, device):
-    """Validate W8A8 weight operands for an input of depth ``k``; a missing
-    bias becomes zeros.  Returns (N, b)."""
-    if wq.dtype != torch.int8 or wq.ndim != 2 or wq.shape[0] != k:
-        raise ValueError(f"wq must be int8 [K={k}, N], got {wq.dtype} {tuple(wq.shape)}")
+def quant_w4a8_matmul_qout_ref(x2, wp, sw, b) -> torch.Tensor:
+    """Plain version of K6: K1's on the unpacked int4 weights."""
+    return quant_w8a8_matmul_qout_ref(x2, unpack_int4(wp), sw, b)
+
+
+def quant_w4a8_matmul_q8_ref(x2, wp, sw, b):
+    """Plain version of K7: K2's on the unpacked int4 weights."""
+    return quant_w8a8_matmul_q8_ref(x2, unpack_int4(wp), sw, b)
+
+
+def quant_w8a8_matmul_ref(x2, wq, sw, b) -> torch.Tensor:
+    """Plain version of K4 on x2 f32 [M, K]: the per-token quantize, then
+    K5's plain version."""
+    sx = act_scale_per_token(x2)
+    return w8a8_matmul_ref(quantize(x2, sx), sx[:, 0], wq, sw, b)
+
+
+def quant_w4a8_matmul_ref(x2, wp, sw, b) -> torch.Tensor:
+    """Plain version of K8: K4's on the unpacked int4 weights."""
+    return quant_w8a8_matmul_ref(x2, unpack_int4(wp), sw, b)
+
+
+def _check_w(k: int, wq, sw, b, device, packed: bool = False):
+    """Validate the weight operands for an input of depth ``k``: int8
+    [K, N], or with ``packed`` uint8 nibble pairs [K/2, N]; a missing bias
+    becomes zeros.  Returns (N, b)."""
+    if packed and k % 2:
+        raise ValueError(f"K={k} must be even for packed-int4 weights")
+    dtype, rows = (torch.uint8, k // 2) if packed else (torch.int8, k)
+    if wq.dtype != dtype or wq.ndim != 2 or wq.shape[0] != rows:
+        raise ValueError(f"the weights must be {dtype} [{rows}, N] for K={k}, "
+                         f"got {wq.dtype} {tuple(wq.shape)}")
     n = wq.shape[1]
     if b is None:
         b = torch.zeros(n, dtype=torch.float32, device=device)
@@ -89,14 +123,18 @@ def _check_w(k: int, wq, sw, b, device):
     for name, t in (("wq", wq), ("sw", sw), ("b", b)):
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, the input on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
     return n, b
 
 
-def _check(x, wq, sw, b):
+def _check(x, wq, sw, b, packed: bool, max_k: int | None = MAX_KN,
+           max_n: int | None = MAX_KN):
+    """Validate a fused quantize-matmul call; returns (x [M, K], N, b)."""
     k = x.shape[-1]
-    n, b = _check_w(k, wq, sw, b, x.device)
-    if k > MAX_KN or n > MAX_KN:
-        raise ValueError(f"K={k} and N={n} must be <= {MAX_KN}")
+    n, b = _check_w(k, wq, sw, b, x.device, packed)
+    if (max_k is not None and k > max_k) or (max_n is not None and n > max_n):
+        raise ValueError(f"K={k} and N={n} must be within K <= {max_k}, N <= {max_n}")
     if x.dtype != torch.float32:
         raise ValueError(f"x must be float32, got {x.dtype}")
     return x.reshape(-1, k), n, b
@@ -110,42 +148,95 @@ def _ptrs(**tensors) -> list[int]:
     return [t.data_ptr() for t in tensors.values()]
 
 
-def quant_w8a8_matmul_qout(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
-                           b: torch.Tensor | None = None) -> torch.Tensor:
-    """K1: x f32 [..., K] -> f32 [..., N] = per-token fake-quant of
-    ``float(quantize(x) @ wq) * (sx * sw) + b``."""
-    x2, n, b = _check(x, wq, sw, b)
+def _qout(fn, entry: str, ref, x, wq, sw, b, packed: bool):
+    x2, n, b = _check(x, wq, sw, b, packed)
     lead = x.shape[:-1]
     if not x.is_cuda:
-        return quant_w8a8_matmul_qout_ref(x2, wq, sw, b).reshape(*lead, n)
+        return ref(x2, wq, sw, b).reshape(*lead, n)
     x2 = x2.contiguous()
     m, k = x2.shape
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m:
-        launch("quant_w8a8_qout", x.device, *_ptrs(x=x2, wq=wq, sw=sw, b=b),
-                out.data_ptr(), m, k, n)
-        quant_w8a8_matmul_qout.launches += 1
+        launch(entry, x.device, *_ptrs(x=x2, wq=wq, sw=sw, b=b), out.data_ptr(), m, k, n)
+        fn.launches += 1
     return out.reshape(*lead, n)
 
 
-def quant_w8a8_matmul_q8(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
-                         b: torch.Tensor | None = None):
-    """K2: x f32 [..., K] -> (int8 [..., N], f32 [..., 1]): the output rows
-    quantized per token, and their scales."""
-    x2, n, b = _check(x, wq, sw, b)
+def _q8(fn, entry: str, ref, x, wq, sw, b, packed: bool):
+    x2, n, b = _check(x, wq, sw, b, packed)
     lead = x.shape[:-1]
     if not x.is_cuda:
-        q, s = quant_w8a8_matmul_q8_ref(x2, wq, sw, b)
+        q, s = ref(x2, wq, sw, b)
         return q.reshape(*lead, n), s.reshape(*lead, 1)
     x2 = x2.contiguous()
     m, k = x2.shape
     q = torch.empty((m, n), dtype=torch.int8, device=x.device)
     s = torch.empty((m, 1), dtype=torch.float32, device=x.device)
     if m:
-        launch("quant_w8a8_q8", x.device, *_ptrs(x=x2, wq=wq, sw=sw, b=b),
-                q.data_ptr(), s.data_ptr(), m, k, n)
-        quant_w8a8_matmul_q8.launches += 1
+        launch(entry, x.device, *_ptrs(x=x2, wq=wq, sw=sw, b=b), q.data_ptr(), s.data_ptr(),
+               m, k, n)
+        fn.launches += 1
     return q.reshape(*lead, n), s.reshape(*lead, 1)
+
+
+def _quant_gemm(fn, entry: str, ref, x, wq, sw, b, packed: bool, max_k: int | None):
+    x2, n, b = _check(x, wq, sw, b, packed, max_k=max_k, max_n=None)
+    lead = x.shape[:-1]
+    if not x.is_cuda:
+        return ref(x2, wq, sw, b).reshape(*lead, n)
+    x2 = x2.contiguous()
+    m, k = x2.shape
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m and n:
+        launch(entry, x.device, *_ptrs(x=x2, wq=wq, sw=sw, b=b), out.data_ptr(), m, k, n)
+        fn.launches += 1
+    return out.reshape(*lead, n)
+
+
+def quant_w8a8_matmul_qout(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
+                           b: torch.Tensor | None = None) -> torch.Tensor:
+    """K1: x f32 [..., K] -> f32 [..., N] = per-token fake-quant of
+    ``float(quantize(x) @ wq) * (sx * sw) + b``; K, N <= 2048."""
+    return _qout(quant_w8a8_matmul_qout, "quant_w8a8_qout", quant_w8a8_matmul_qout_ref,
+                 x, wq, sw, b, packed=False)
+
+
+def quant_w8a8_matmul_q8(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
+                         b: torch.Tensor | None = None):
+    """K2: x f32 [..., K] -> (int8 [..., N], f32 [..., 1]): the output rows
+    quantized per token, and their scales; K, N <= 2048."""
+    return _q8(quant_w8a8_matmul_q8, "quant_w8a8_q8", quant_w8a8_matmul_q8_ref,
+               x, wq, sw, b, packed=False)
+
+
+def quant_w4a8_matmul_qout(x: torch.Tensor, wp: torch.Tensor, sw: torch.Tensor,
+                           b: torch.Tensor | None = None) -> torch.Tensor:
+    """K6: K1 over packed-int4 weights wp uint8 [K/2, N]; K, N <= 2048."""
+    return _qout(quant_w4a8_matmul_qout, "quant_w4a8_qout", quant_w4a8_matmul_qout_ref,
+                 x, wp, sw, b, packed=True)
+
+
+def quant_w4a8_matmul_q8(x: torch.Tensor, wp: torch.Tensor, sw: torch.Tensor,
+                         b: torch.Tensor | None = None):
+    """K7: K2 over packed-int4 weights wp uint8 [K/2, N]; K, N <= 2048."""
+    return _q8(quant_w4a8_matmul_q8, "quant_w4a8_q8", quant_w4a8_matmul_q8_ref,
+               x, wp, sw, b, packed=True)
+
+
+def quant_w8a8_matmul(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
+                      b: torch.Tensor | None = None) -> torch.Tensor:
+    """K4: x f32 [..., K] -> f32 [..., N] = ``float(quantize(x) @ wq) *
+    (sx * sw) + b`` with the per-token scale of the whole row; any K, N."""
+    return _quant_gemm(quant_w8a8_matmul, "quant_w8a8_gemm", quant_w8a8_matmul_ref,
+                       x, wq, sw, b, packed=False, max_k=None)
+
+
+def quant_w4a8_matmul(x: torch.Tensor, wp: torch.Tensor, sw: torch.Tensor,
+                      b: torch.Tensor | None = None) -> torch.Tensor:
+    """K8: K4 over packed-int4 weights wp uint8 [K/2, N]; K even and
+    <= 4096, any N."""
+    return _quant_gemm(quant_w4a8_matmul, "quant_w4a8_gemm", quant_w4a8_matmul_ref,
+                       x, wp, sw, b, packed=True, max_k=MAX_K_W4A8)
 
 
 def w8a8_matmul(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
@@ -174,6 +265,6 @@ def w8a8_matmul(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
     return out.reshape(*lead, n)
 
 
-quant_w8a8_matmul_qout.launches = 0
-quant_w8a8_matmul_q8.launches = 0
-w8a8_matmul.launches = 0
+for _fn in (quant_w8a8_matmul_qout, quant_w8a8_matmul_q8, quant_w4a8_matmul_qout,
+            quant_w4a8_matmul_q8, quant_w8a8_matmul, quant_w4a8_matmul, w8a8_matmul):
+    _fn.launches = 0

@@ -13,7 +13,8 @@ The int8-cache attentions (``int8_cache_attention*``) attend one query step
 over the merged-head int8 K/V cache [B, T, D] with per-token scales, without
 dequantizing the cache into an f32 [B, T, D] tensor first.
 
-Inference only: there is no dropout and no tap/inject seam here.
+There is no dropout and no tap/inject seam here yet; gradients flow as in
+the JAX package (straight through the probability rounding).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from onnx_transformer_tpu_torch.quant.core import true_div
+from onnx_transformer_tpu_torch.quant.core import ste_round, true_div
 
 NEG_INF = -1e9
 
@@ -87,8 +88,10 @@ def positional_encoding(x: torch.Tensor, offset=0, max_len: int = 5000) -> torch
 
 
 def quantize_probs(p: torch.Tensor) -> torch.Tensor:
-    """Attention probabilities snapped to the 1/127 grid."""
-    return true_div(torch.round(p * 127.0), 127.0)
+    """Attention probabilities snapped to the 1/127 grid, with a
+    straight-through gradient as in the JAX package (so that a QAT forward
+    trains q and k through the probabilities)."""
+    return true_div(ste_round(p * 127.0), 127.0)
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:

@@ -1,10 +1,17 @@
 """Symmetric absmax quantization primitives (port of ``onnx_transformer_tpu/quant/core.py``).
 
-Numeric contract: symmetric int8 with qmax = 2^(bits-1) - 1 = 127, scales
-clamped at 1e-5 *before* dividing by qmax, per-channel over the weight
-out-feature dim, per-token (last-dim absmax) for activations.  Quantizing is
-a true division ``x / s`` followed by ``torch.round``, which rounds half to
-even as ``jnp.round`` does.
+Numeric contract: symmetric with qmax = 2^(bits-1) - 1 (127 for int8, 7 for
+int4), scales clamped at 1e-5 *before* dividing by qmax, per-channel over the
+weight out-feature dim, per-token (last-dim absmax) or per-tensor for
+activations.  Quantizing is a true division ``x / s`` followed by
+``torch.round``, which rounds half to even as ``jnp.round`` does; ``clip``
+clamps to [-qmax, qmax] for scales that are not the absmax.
+
+int4 payloads are packed two to a byte along axis 0 (``pack_int4``): the low
+nibble holds row 2r, the high nibble row 2r+1, both sign-extended on unpack.
+``ste_round`` / ``fake_quant_ste`` are the straight-through fake-quant of QAT:
+the rounding passes the gradient unchanged, and the clamp splits it at the
+bounds as ``jnp.clip`` does (half to each side at a tie).
 
 Every division by a constant goes through :func:`true_div`: PyTorch's CUDA
 division by a Python scalar multiplies by the reciprocal instead, which can
@@ -43,9 +50,14 @@ def absmax_scale(x: torch.Tensor, dim: int, bits: int = 8,
     return true_div(s.clamp_min(SCALE_FLOOR), qmax_for(bits))
 
 
-def quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """round_half_even(x / scale) as int8 (absmax scales keep it in range)."""
-    return torch.round(x / scale).to(torch.int8)
+def quantize(x: torch.Tensor, scale: torch.Tensor, bits: int = 8,
+             clip: bool = False) -> torch.Tensor:
+    """round_half_even(x / scale) as int8; absmax scales keep it in range,
+    ``clip`` clamps to [-qmax, qmax] for other scales."""
+    q = torch.round(x / scale)
+    if clip:
+        q = q.clamp(-qmax_for(bits), qmax_for(bits))
+    return q.to(torch.int8)
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -56,7 +68,18 @@ def quantize_weight_per_channel(w: torch.Tensor, bits: int = 8):
     """w stored (in, out); per-out-channel scales.
     Returns (int8 [in, out], scales [out])."""
     scale = absmax_scale(w, dim=0, bits=bits, keepdim=False)
-    return quantize(w, scale[None, :]), scale
+    return quantize(w, scale[None, :], bits), scale
+
+
+def quantize_weight_per_tensor(w: torch.Tensor, bits: int = 8):
+    """One scale for the whole tensor: (int8, scale 0-dim)."""
+    scale = true_div(w.abs().amax().clamp_min(SCALE_FLOOR), qmax_for(bits))
+    return quantize(w, scale, bits), scale
+
+
+def fake_quant_weight_per_channel(w: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    q, s = quantize_weight_per_channel(w, bits)
+    return dequantize(q, s[None, :])
 
 
 def act_scale_per_token(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
@@ -66,9 +89,59 @@ def act_scale_per_token(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
 
 def quantize_act_per_token(x: torch.Tensor, bits: int = 8):
     s = act_scale_per_token(x, bits)
-    return quantize(x, s), s
+    return quantize(x, s, bits), s
 
 
 def fake_quant_act_per_token(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
     q, s = quantize_act_per_token(x, bits)
     return dequantize(q, s)
+
+
+def quantize_act_per_tensor(x: torch.Tensor, bits: int = 8):
+    return quantize_weight_per_tensor(x, bits)
+
+
+def fake_quant_act_per_tensor(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    q, s = quantize_act_per_tensor(x, bits)
+    return dequantize(q, s)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-8, 7], [in, ...] with an even in-dim -> uint8
+    [in // 2, ...]: row 2r in the low nibble, row 2r+1 in the high one."""
+    lo = (q[0::2] & 0xF).to(torch.uint8)
+    hi = (q[1::2] & 0xF).to(torch.uint8)
+    return lo | (hi << 4)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4` -> int8 [2 * rows, ...], sign-extended."""
+    lo = (packed & 0xF).to(torch.int8)
+    hi = ((packed >> 4) & 0xF).to(torch.int8)
+    lo = torch.where(lo > 7, lo - 16, lo)
+    hi = torch.where(hi > 7, hi - 16, hi)
+    return torch.stack([lo, hi], dim=1).reshape(packed.shape[0] * 2, *packed.shape[1:])
+
+
+class _SteRound(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def ste_round(x: torch.Tensor) -> torch.Tensor:
+    """round half to even, with the identity as its gradient."""
+    return _SteRound.apply(x) if x.requires_grad else torch.round(x)
+
+
+def fake_quant_ste(x: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:
+    """Fake-quant with straight-through rounding (QAT).  The clamp is a
+    maximum then a minimum against tensors, whose gradients split at a tie
+    as ``jnp.clip``'s do (``torch.clamp`` would pass all of it)."""
+    qm = _const(float(qmax_for(bits)), x.dtype, x.device)
+    q = torch.minimum(torch.maximum(ste_round(x / scale), -qm), qm)
+    return q * scale

@@ -13,6 +13,12 @@ operands; ``fused`` sends the q/k/v projections of at least
 ``FUSED_MIN_TOKENS`` tokens to kernel K1 and gives the cross-K/V producer
 kernel K2 as ``lin.linear_q8``.  In every mode q/k/v fake-quantize their
 output per token.
+
+``bits`` sets the width of the weights and activations (qmax 2^(bits-1)-1,
+stored in int8).  The kernels of mode ``fused`` exist for 8 bits only, so
+with any other width that mode runs the int8 chain; its ``linear_q8`` then
+declines too (the JAX package's hands the cross-K/V to its 8-bit kernel
+whatever ``bits`` is).
 """
 
 from __future__ import annotations
@@ -71,7 +77,7 @@ def is_quantized_output(name: str) -> bool:
     return ".linears." in name and name.rsplit(".", 1)[-1] in ("0", "1", "2")
 
 
-def quantize_model_params(model: Transformer, params: dict,
+def quantize_model_params(model: Transformer, params: dict, bits: int = 8,
                           include_generator: bool = False) -> dict:
     """name -> {wq int8 [in, out], sw f32 [out], b f32 [out]}."""
     names = dict(quantized_linear_names(model.cfg.num_layers))
@@ -80,18 +86,18 @@ def quantize_model_params(model: Transformer, params: dict,
     payloads = {}
     for name in names:
         leaf = _param_leaf(params, name)
-        wq, sw = Q.quantize_weight_per_channel(leaf["w"].float())
+        wq, sw = Q.quantize_weight_per_channel(leaf["w"].float(), bits)
         payloads[name] = {"wq": wq.contiguous(), "sw": sw, "b": leaf["b"].float()}
     return payloads
 
 
-def _fused_ok(p: dict, name: str, x: torch.Tensor) -> bool:
-    return (is_quantized_output(name)
+def _fused_ok(p: dict, name: str, x: torch.Tensor, bits: int) -> bool:
+    return (bits == 8 and is_quantized_output(name)
             and x[..., 0].numel() >= FUSED_MIN_TOKENS
             and x.shape[-1] <= K.MAX_KN and p["wq"].shape[-1] <= K.MAX_KN)
 
 
-def make_w8a8_linear_impl(payloads: dict, mode: Mode = "int8") -> Callable:
+def make_w8a8_linear_impl(payloads: dict, mode: Mode = "int8", bits: int = 8) -> Callable:
     """LinearImpl for ``Transformer`` methods: the W8A8 stand-in for every
     quantized linear, the plain fp linear for the rest."""
     if mode not in MODES:
@@ -101,10 +107,10 @@ def make_w8a8_linear_impl(payloads: dict, mode: Mode = "int8") -> Callable:
         p = payloads.get(name)
         if p is None:
             return default_linear(name, x, w, b)
-        if mode == "fused" and _fused_ok(p, name, x):
+        if mode == "fused" and _fused_ok(p, name, x, bits):
             return K.quant_w8a8_matmul_qout(x, p["wq"], p["sw"], p["b"])
-        sx = Q.act_scale_per_token(x)
-        xq = Q.quantize(x, sx)
+        sx = Q.act_scale_per_token(x, bits)
+        xq = Q.quantize(x, sx, bits)
         if mode == "fake":
             y = torch.matmul(Q.dequantize(xq, sx), Q.dequantize(p["wq"], p["sw"][None, :]))
             y = y + p["b"]
@@ -114,7 +120,7 @@ def make_w8a8_linear_impl(payloads: dict, mode: Mode = "int8") -> Callable:
             y = K.w8a8_matmul_ref(xq.reshape(-1, xq.shape[-1]), sx.reshape(-1), p["wq"],
                                   p["sw"], p["b"]).reshape(*x.shape[:-1], -1)
         if is_quantized_output(name):
-            y = Q.fake_quant_act_per_token(y)
+            y = Q.fake_quant_act_per_token(y, bits)
         return y
 
     if mode == "fused":
@@ -122,7 +128,7 @@ def make_w8a8_linear_impl(payloads: dict, mode: Mode = "int8") -> Callable:
             """(int8 rows, per-token scales) straight from kernel K2, or
             None when the call cannot take the kernel."""
             p = payloads.get(name)
-            if p is None or not _fused_ok(p, name, x):
+            if p is None or not _fused_ok(p, name, x, bits):
                 return None
             return K.quant_w8a8_matmul_q8(x, p["wq"], p["sw"], p["b"])
 
@@ -137,12 +143,13 @@ def make_w8a8_linear_impl(payloads: dict, mode: Mode = "int8") -> Callable:
 
 def quantize_transformer(model: Transformer, params: dict,
                          act_scales: Optional[dict] = None, alpha: float = 0.5,
-                         mode: Mode = "int8", include_generator: bool = False):
+                         mode: Mode = "int8", bits: int = 8,
+                         include_generator: bool = False):
     """SmoothQuant-migrate with calibrated scales, then quantize.  Returns
     (smoothed_params, linear_impl)."""
     from onnx_transformer_tpu_torch.quant.smoothquant import smooth_params
 
     if act_scales is not None:
         params = smooth_params(params, act_scales, alpha)
-    payloads = quantize_model_params(model, params, include_generator)
-    return params, make_w8a8_linear_impl(payloads, mode)
+    payloads = quantize_model_params(model, params, bits, include_generator)
+    return params, make_w8a8_linear_impl(payloads, mode, bits)

@@ -1,6 +1,7 @@
 """chip_smoke.py's phases rehearsed on the CPU at a tiny size: the kernel
 checks, the chunk-staged main path, the KV-cached serving path with its
-launch counts, and the reference phase.  On the CPU the kernel wrappers
+launch counts, the int4 path with its launch counts, and the reference
+phase.  On the CPU the kernel wrappers
 take their plain versions and count nothing, so each wrapper is wrapped
 here to count its calls; the CUDA-only timing and profiling are stubbed.
 The script itself runs on the card (``python3 chip_smoke.py``)."""
@@ -13,6 +14,7 @@ import chip_smoke as C
 from onnx_transformer_tpu_torch.models import transformer as PT
 from onnx_transformer_tpu_torch.ops.kernels import decode_attention as KA
 from onnx_transformer_tpu_torch.ops.kernels import w8a8_matmul as KM
+from onnx_transformer_tpu_torch.quant import w8a8 as TW
 
 CPU = torch.device("cpu")
 
@@ -30,7 +32,7 @@ def rehearsal(monkeypatch):
     attn = counting(KA.decode_attention_int8)
     monkeypatch.setattr(KA, "decode_attention_int8", attn)
     monkeypatch.setattr(PT, "decode_attention_int8", attn)
-    for name in ("w8a8_matmul", "quant_w8a8_matmul_qout", "quant_w8a8_matmul_q8"):
+    for name in C.MATMUL_COUNTERS.values():
         monkeypatch.setattr(KM, name, counting(getattr(KM, name)))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(C, "cuda_ms", lambda fn, **k: (fn(), 0.0)[1])
@@ -42,6 +44,11 @@ def test_kernel_checks(rehearsal):
     rows.update(C.check_k5(CPU, [((5,), 64, 96), ((1,), 300, 96), ((4, 15), 128, 128)],
                            [((16,), 64, 64)]))
     rows.update(C.check_k3(CPU, [(6, 9, 64, 4), (3, 1, 64, 4), (2, 9, 18, 3)], (6, 9, 64, 4)))
+    rows.update(C.check_kernels(CPU, [((4, 7), 64, 96), ((3,), 128, 32)], ((4, 7), 64, 96),
+                                packed=True))
+    common = [((5,), 64, 96), ((1,), 300, 96), ((4, 15), 128, 128)]
+    rows.update(C.check_quant_gemm(CPU, {"qgemm": common + [((3,), 9728, 8)],
+                                         "qgemm4": common}, ((16,), 64, 64)))
     assert sorted(rows) == sorted(k for k in C.KERNELS)
     keys = {"ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "partial_yardstick"}
     for row in rows.values():
@@ -57,8 +64,28 @@ def test_paths_and_launch_counts(rehearsal):
     # per layer per step; K1/K2 never
     assert serve["launches"] == {"attn": 2 * 2 * 7, "w8a8": 12 + 4 + 8 * 2 * 7,
                                  "qout": 0, "q8": 0}
-    assert serve["agree"] == serve["agree_chunked"] == 1.0
+    assert serve["agree"] == serve["agree_chunked"] == serve["agree_plain_attn"] == 1.0
     assert C.run_reference(CPU) == 1.0
+
+
+def test_int4_path_launch_counts(rehearsal, monkeypatch):
+    """With the token threshold at 1, the tiny encoder's q/k/v take K6 and
+    its cross-K/V K7, as the full-size encoder does on the card."""
+    monkeypatch.setattr(TW, "FUSED_MIN_TOKENS", 1)
+    base = C.build_iwslt(CPU, num_layers=2, batch=6, src_len=9)
+    res = C.run_int4_path(CPU, base, max_len=8, chunk=4, card="cpu")
+    assert res["launches"]["qout4"] == 3 * 2 and res["launches"]["q84"] == 2 * 2
+    assert sum(res["launches"].values()) == 10
+    assert res["agree"] == 1.0
+
+
+def test_bound_counts_packed_weights():
+    """Packed int4 weights count half the bytes of int8 ones."""
+    m, k, n = 36864, 512, 2048
+    full, _ = C.bound_ms(m, k, n, 4 * n)
+    packed, by = C.bound_ms(m, k, n, 4 * n, k * n // 2)
+    assert by == "bytes"
+    assert np.isclose((full - packed) * 1e-3 * C.HBM_BYTES_PER_S, k * n / 2)
 
 
 def test_bounds():

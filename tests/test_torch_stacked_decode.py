@@ -3,7 +3,9 @@ config of tests/test_stacked_decode.py: the chunk-staged greedy decode in
 "int8" mode gives identical tokens; "fused" mode (kernel plain versions on
 the CPU) keeps the encoder memory within atol 1e-4 / rtol 1e-5 and >= 95 %
 of the tokens, as tests/test_stacked_decode.py:84-107 requires of its own
-kernel path."""
+kernel path.  The reference's signatures hold positionally:
+``start_symbol`` after ``chunk``, ``segments``, ``vis_stg`` and
+``log_probs``."""
 
 import jax
 import jax.numpy as jnp
@@ -138,3 +140,110 @@ def test_attn_groups_matches_jax(quantize):
                            [{k: torch.from_numpy(v) for k, v in g.items()} for g in groups],
                            h, quantize)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=1e-5)
+
+
+def test_start_symbol_positional(setup):
+    """``(..., max_len, chunk, start_symbol, lin)`` as the JAX package takes
+    them: column 0 is the start symbol and every token equals JAX's."""
+    m, sp, lin8, stacked = setup["jax"]
+    pm, psp, plin8, pstacked = setup["torch"]
+    src = setup["src"]
+    sj, stt = jnp.asarray(src), torch.from_numpy(src)
+    want = np.array(JSD.greedy_decode_chunked(m, sp, stacked, sj, JL.make_src_mask(sj),
+                                              MAX_LEN, 4, 3, lin8))
+    got = TSD.greedy_decode_chunked(pm, psp, pstacked, stt, TL.make_src_mask(stt), MAX_LEN,
+                                    4, 3, plin8).numpy()
+    assert (got[:, 0] == 3).all()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("segments", [2, 3, 9])
+def test_segments_match_jax_and_one_segment(setup, segments):
+    """The self-K/V cache grown at segment boundaries gives the same tokens
+    as JAX's and as one segment (9 is cut to the 6 chunks there are)."""
+    m, sp, lin8, stacked = setup["jax"]
+    src = jnp.asarray(setup["src"])
+    got = _torch_tokens(setup, 2, segments=segments).numpy()
+    np.testing.assert_array_equal(got, _torch_tokens(setup, 2).numpy())
+    if segments != 9:
+        want = np.array(JSD.greedy_decode_chunked(m, sp, stacked, src, JL.make_src_mask(src),
+                                                  MAX_LEN, chunk=2, lin=lin8,
+                                                  segments=segments))
+        np.testing.assert_array_equal(got, want)
+
+
+def _step_state(d, t, s, j, seed, n_layers):
+    """A main int8 cache of T rows, a cross cache of S rows, j staged rows
+    per layer, and an embedded token, for B=5."""
+    rng = np.random.default_rng(seed)
+    b = 5
+
+    def i8(*shape):
+        return rng.integers(-127, 128, shape).astype(np.int8)
+
+    def sc(*shape):
+        return rng.uniform(0.001, 0.02, shape).astype(np.float32)
+
+    cache = [{"k": i8(b, t, d), "v": i8(b, t, d), "k_scale": sc(b, t, 1), "v_scale": sc(b, t, 1),
+              "cross_k": i8(b, s, d), "cross_v": i8(b, s, d), "cross_k_scale": sc(b, s, 1),
+              "cross_v_scale": sc(b, s, 1)} for _ in range(n_layers)]
+    inflight = [{"k": i8(b, j, d), "v": i8(b, j, d), "ks": sc(b, j), "vs": sc(b, j)}
+                for _ in range(n_layers)]
+    x = rng.normal(size=(b, d)).astype(np.float32)
+    vis_cache = np.arange(t)[None, :] < rng.integers(1, t, (b, 1))
+    vis_stg = rng.uniform(size=(b, j + 1)) < 0.5
+    vis_stg[:, -1] = True           # a row always sees itself
+    smask = np.ones((b, s), bool)
+    smask[1, -2:] = False
+    return cache, inflight, x, vis_cache, vis_stg, smask
+
+
+def test_layer_stack_step_vis_stg_matches_jax(setup):
+    """Per-row visibility of the staged rows, as the engine passes it: x
+    and the in-flight rows equal JAX's, and hiding rows changes x."""
+    m, _, _, stacked = setup["jax"]
+    _, _, _, pstacked = setup["torch"]
+    cfg = m.cfg
+    cache, inflight, x, vis_cache, vis_stg, smask = _step_state(cfg.d_model, 8, 9, 3, 4,
+                                                                cfg.num_layers)
+    h, quant = cfg.num_heads, cfg.quantize_attn_probs
+    to_j = lambda tree: jax.tree_util.tree_map(jnp.asarray, tree)   # noqa: E731
+    to_t = lambda tree: jax.tree_util.tree_map(torch.from_numpy, tree)   # noqa: E731
+    xj, flj = JSD.layer_stack_step_inflight(stacked, to_j(cache), to_j(inflight), jnp.asarray(x),
+                                            jnp.asarray(vis_cache), jnp.asarray(vis_stg),
+                                            jnp.asarray(smask), h, quant)
+    xt, flt = TSD.layer_stack_step_inflight(pstacked, to_t(cache), to_t(inflight),
+                                            torch.from_numpy(x), torch.from_numpy(vis_cache),
+                                            torch.from_numpy(vis_stg), torch.from_numpy(smask),
+                                            h, quant)
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), atol=1e-5, rtol=1e-5)
+    # the int8 rows are equal in every layer; the new rows' scales agree
+    # within rtol 1e-6, since each layer's input went through f32 LayerNorm
+    # and attention sums that XLA and PyTorch order differently
+    for lj, lt in zip(flj, flt):
+        assert lt["k"].shape[1] == 4
+        for key in ("k", "v"):
+            np.testing.assert_array_equal(lt[key].numpy(), np.asarray(lj[key]))
+        for key in ("ks", "vs"):
+            np.testing.assert_array_equal(lt[key][:, :3].numpy(), np.asarray(lj[key])[:, :3])
+            np.testing.assert_allclose(lt[key].numpy(), np.asarray(lj[key]), atol=0, rtol=1e-6)
+    x_all, _ = TSD.layer_stack_step_inflight(pstacked, to_t(cache), to_t(inflight),
+                                             torch.from_numpy(x), torch.from_numpy(vis_cache),
+                                             None, torch.from_numpy(smask), h, quant)
+    x_ones, _ = TSD.layer_stack_step_inflight(pstacked, to_t(cache), to_t(inflight),
+                                              torch.from_numpy(x), torch.from_numpy(vis_cache),
+                                              torch.ones(5, 4, dtype=torch.bool),
+                                              torch.from_numpy(smask), h, quant)
+    assert torch.equal(x_all, x_ones) and not torch.equal(x_all, xt)
+
+
+def test_final_logits_log_probs_matches_jax(setup):
+    _, _, _, stacked = setup["jax"]
+    _, _, _, pstacked = setup["torch"]
+    x = np.random.default_rng(12).normal(size=(5, 32)).astype(np.float32)
+    for log_probs in (False, True):
+        want = np.asarray(JSD.final_logits(stacked, jnp.asarray(x), log_probs))
+        got = TSD.final_logits(pstacked, torch.from_numpy(x), log_probs).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    lp = TSD.final_logits(pstacked, torch.from_numpy(x), log_probs=True)
+    np.testing.assert_allclose(lp.exp().sum(-1).numpy(), 1.0, rtol=1e-5)

@@ -1,0 +1,158 @@
+"""K6 (quant_w4a8_matmul_qout), K7 (quant_w4a8_matmul_q8), K8
+(quant_w4a8_matmul) and K4 (quant_w8a8_matmul): the plain PyTorch versions
+against the JAX Pallas kernels run in interpret mode on the CPU, at the JAX
+tests' shapes and bounds (tests/test_pallas_kernels.py:49,143,162,186,279,
+tests/test_quant.py:321): rtol 1e-6 / atol 1e-4 for K4 and K8 (the
+interpreted kernels contract ``acc * s + b`` into an FMA on the CPU),
+atol 1e-4 / rtol 1e-5 for K6, and K7's int8 rows equal with scales within
+rtol 1e-6.  Against the JAX package's eager chain, which divides exactly
+and does not contract, each is bit-equal.  The wrappers' argument checks,
+and their CPU dispatch to the plain versions.  The CUDA kernels themselves
+are held against these plain versions on the card by chip_smoke.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from onnx_transformer_tpu.ops.pallas import w8a8_matmul as JK
+from onnx_transformer_tpu.quant import core as JQ
+from onnx_transformer_tpu_torch.ops.kernels import w8a8_matmul as K
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+def _case(m, k, n, seed, int4=False, scale=1.0, bias=True):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(m, k)) * scale).astype(np.float32)
+    lo, hi = (-8, 8) if int4 else (-127, 128)
+    wq = rng.integers(lo, hi, (k, n)).astype(np.int8)
+    sw = rng.uniform(0.001, 0.01, (n,)).astype(np.float32)
+    b = rng.normal(size=(n,)).astype(np.float32) if bias else None
+    return x, wq, sw, b
+
+
+def _eager_chain(x, wq, sw, b):
+    """The JAX package's per-token quantize + int32 product + epilogue, op
+    by op."""
+    xq, sx = JQ.quantize_act_per_token(jnp.asarray(x))
+    acc = jax.lax.dot_general(xq, jnp.asarray(wq), (((1,), (0,)), ((), ())),
+                              preferred_element_type=jnp.int32)
+    y = acc.astype(jnp.float32) * (sx * jnp.asarray(sw)[None, :])
+    return np.asarray(y + jnp.asarray(b) if b is not None else y)
+
+
+@pytest.mark.parametrize("m,k,n,seed,block_k,bias,scale", [
+    (32, 256, 128, 0, 2048, True, 1.0),           # test_pallas_kernels.py:49
+    (16, 10240, 128, 0, 2048, True, 1.0),         # :143, K past the one-block limit
+    (24, 16384, 96, 11, 4096, True, 3.0),         # :162, the K-tiled kernel
+    (16, 9728, 64, 13, 4096, False, 1.0),         # :186, ragged last K tile, no bias
+])
+def test_k4_ref_matches_jax_interpret(m, k, n, seed, block_k, bias, scale):
+    x, wq, sw, b = _case(m, k, n, seed, scale=scale, bias=bias)
+    want = np.asarray(JK.quant_w8a8_matmul(*map(jnp.asarray, (x, wq, sw)),
+                                           None if b is None else jnp.asarray(b),
+                                           block_k=block_k, interpret=True))
+    bt = torch.zeros(n) if b is None else _t(b)[0]
+    got = K.quant_w8a8_matmul_ref(*_t(x, wq, sw), bt)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-4)
+    np.testing.assert_array_equal(got.numpy(), _eager_chain(x, wq, sw, b))
+    # the wrapper takes the plain version on the CPU
+    assert torch.equal(K.quant_w8a8_matmul(*_t(x, wq, sw), None if b is None else bt), got)
+
+
+@pytest.mark.parametrize("m,k,n,seed", [(24, 32, 64, 3),    # test_quant.py:321
+                                        (24, 64, 96, 23),   # test_pallas_kernels.py:279
+                                        (40, 300, 96, 5)])  # ragged K, any N
+def test_k8_ref_matches_jax_interpret(m, k, n, seed):
+    x, wq, sw, b = _case(m, k, n, seed, int4=True)
+    packed = np.asarray(JQ.pack_int4(jnp.asarray(wq)))
+    got = K.quant_w4a8_matmul_ref(*_t(x, packed, sw, b))
+    if n % min(512, n) == 0:
+        want = np.asarray(JK.quant_w4a8_matmul(*map(jnp.asarray, (x, packed, sw, b)),
+                                               interpret=True))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-4)
+    np.testing.assert_array_equal(got.numpy(), _eager_chain(x, wq, sw, b))
+    assert torch.equal(got, K.quant_w8a8_matmul_ref(*_t(x, wq, sw, b)))
+
+
+@pytest.mark.parametrize("m,k,n,seed", [(24, 64, 96, 23), (37, 128, 256, 4)])
+def test_k6_k7_refs_match_jax_interpret(m, k, n, seed):
+    """As tests/test_pallas_kernels.py:279-303: K6 against its interpreted
+    kernel and the fake-quant of the eager chain; K7's rows and scales."""
+    x, wq, sw, b = _case(m, k, n, seed, int4=True)
+    packed = np.asarray(JQ.pack_int4(jnp.asarray(wq)))
+    args_j = list(map(jnp.asarray, (x, packed, sw, b)))
+    x2, pt, swt, bt = _t(x, packed, sw, b)
+    y = K.quant_w4a8_matmul_qout_ref(x2, pt, swt, bt)
+    np.testing.assert_allclose(y.numpy(), np.asarray(JK.quant_w4a8_matmul_qout(
+        *args_j, interpret=True)), atol=1e-4, rtol=1e-5)
+    chain_q = np.asarray(JQ.fake_quant_act_per_token(jnp.asarray(_eager_chain(x, wq, sw, b))))
+    np.testing.assert_array_equal(y.numpy(), chain_q)
+    q, s = K.quant_w4a8_matmul_q8_ref(x2, pt, swt, bt)
+    qj, sj = JK.quant_w4a8_matmul_q8(*args_j, interpret=True)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(qj))
+    np.testing.assert_allclose(s.numpy(), np.asarray(sj), rtol=1e-6, atol=0)
+    np.testing.assert_array_equal((q.float() * s).numpy(), chain_q)
+
+
+def test_cpu_dispatch_lead_dims_and_counts():
+    """Lead dims and a missing bias on the CPU: the plain versions, nothing
+    counted."""
+    x, wq, sw, b = _case(60, 128, 96, 7, int4=True)
+    xt, wt, swt, bt = _t(x.reshape(4, 15, 128), wq, sw, b)
+    pt = torch.from_numpy(np.array(JQ.pack_int4(jnp.asarray(wq))))
+    fns = (K.quant_w4a8_matmul_qout, K.quant_w4a8_matmul_q8, K.quant_w4a8_matmul,
+           K.quant_w8a8_matmul)
+    counts = [f.launches for f in fns]
+    y6 = K.quant_w4a8_matmul_qout(xt, pt, swt, bt)
+    q7, s7 = K.quant_w4a8_matmul_q8(xt, pt, swt, bt)
+    y8 = K.quant_w4a8_matmul(xt, pt, swt)
+    y4 = K.quant_w8a8_matmul(xt, wt, swt)
+    assert y6.shape == y8.shape == y4.shape == q7.shape == (4, 15, 96)
+    assert s7.shape == (4, 15, 1) and q7.dtype == torch.int8
+    x2 = xt.reshape(60, 128)
+    assert torch.equal(y6.reshape(60, 96), K.quant_w4a8_matmul_qout_ref(x2, pt, swt, bt))
+    assert torch.equal(y8, y4) and torch.equal(
+        y8.reshape(60, 96), K.quant_w4a8_matmul_ref(x2, pt, swt, torch.zeros(96)))
+    assert [f.launches for f in fns] == counts
+
+
+def _raises(fn, x, w, sw=None, b=None):
+    with pytest.raises(ValueError):
+        fn(x, w, torch.ones(w.shape[1]) if sw is None else sw, b)
+
+
+def test_wrappers_reject_bad_inputs():
+    p = torch.zeros(32, 96, dtype=torch.uint8)
+    w8 = torch.zeros(64, 96, dtype=torch.int8)
+    x = torch.zeros(4, 64)
+    # K or N over 2048 for K6/K7 (the kernels' own limit)
+    for fn in (K.quant_w4a8_matmul_qout, K.quant_w4a8_matmul_q8):
+        _raises(fn, torch.zeros(2, 4096), torch.zeros(2048, 8, dtype=torch.uint8))
+        _raises(fn, x, torch.zeros(32, 4096, dtype=torch.uint8))
+    # K8: odd K, and K over 4096; N is free
+    _raises(K.quant_w4a8_matmul, torch.zeros(2, 301), torch.zeros(150, 8, dtype=torch.uint8))
+    _raises(K.quant_w4a8_matmul, torch.zeros(2, 8192), torch.zeros(4096, 8, dtype=torch.uint8))
+    assert K.quant_w4a8_matmul(torch.zeros(2, 64), torch.zeros(32, 5000, dtype=torch.uint8),
+                               torch.ones(5000)).shape == (2, 5000)
+    # the uint8 / int8 mix-up, both ways
+    for fn in (K.quant_w4a8_matmul_qout, K.quant_w4a8_matmul_q8, K.quant_w4a8_matmul):
+        _raises(fn, x, torch.zeros(32, 96, dtype=torch.int8))
+        _raises(fn, x, w8)                      # int8 [K, N] passed as packed
+    for fn in (K.quant_w8a8_matmul, K.quant_w8a8_matmul_qout, K.quant_w8a8_matmul_q8):
+        _raises(fn, x, torch.zeros(64, 96, dtype=torch.uint8))
+    # a non-contiguous weight operand, scale or bias
+    wide = torch.zeros(96, 32, dtype=torch.uint8).t()
+    assert wide.shape == (32, 96) and not wide.is_contiguous()
+    for fn in (K.quant_w4a8_matmul_qout, K.quant_w4a8_matmul_q8, K.quant_w4a8_matmul):
+        _raises(fn, x, wide)
+        _raises(fn, x, p, sw=torch.ones(96, 2)[:, 0])
+        _raises(fn, x, p, b=torch.zeros(96, 2)[:, 0])
+    _raises(K.quant_w8a8_matmul, x, torch.zeros(96, 64, dtype=torch.int8).t())
+    # f32 input only; scales and bias f32 [N]
+    _raises(K.quant_w8a8_matmul, x.double(), w8)
+    _raises(K.quant_w4a8_matmul, x, p, sw=torch.ones(95))

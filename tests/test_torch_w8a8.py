@@ -4,7 +4,8 @@ bit-equal, the fused mode (kernel plain versions on the CPU) within
 atol 1e-4 / rtol 1e-5 with FUSED_MIN_TOKENS set to 1 in both packages, the
 pallas mode (K5's plain version on the CPU) bit-equal to the int8 chain of
 both packages and within atol 1e-4 / rtol 1e-5 of the JAX pallas mode (its
-kernel interpreted), and the fake mode within the same bound."""
+kernel interpreted), and the fake mode within the same bound.  The entry
+points take ``bits`` where the JAX package does, positionally too."""
 
 import jax
 import jax.numpy as jnp
@@ -175,3 +176,56 @@ def test_fake_mode_matches_jax(setup, name):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-5)
     assert lin_t.mode == "fake" and lin_t.quantized_output_grid
     assert not hasattr(lin_t, "linear_q8")
+
+
+def test_positional_bits_matches_jax(setup):
+    """A reference-style positional call ``quantize_model_params(m, p, 8)``
+    quantizes no generator; ``bits=4`` payloads are the JAX package's."""
+    m, params, pm, pp = setup
+    for bits in (8, 4):
+        pj = JW.quantize_model_params(m, params, bits)
+        pt = TW.quantize_model_params(pm, pp, bits)
+        assert set(pt) == set(pj) and "generator.proj" not in pt
+        for name in pj:
+            for key in ("wq", "sw", "b"):
+                np.testing.assert_array_equal(pt[name][key].numpy(), np.asarray(pj[name][key]))
+    assert int(pt["encoder.layers.0.feed_forward.w_1"]["wq"].abs().max()) == 7
+    assert "generator.proj" in TW.quantize_model_params(pm, pp, 8, True)
+
+
+def test_fused_bits4_takes_no_kernel(setup, fused_everywhere, monkeypatch):
+    """``make_w8a8_linear_impl(pl, "fused", 4)``: the kernels are 8-bit, so
+    every call runs the 4-bit chain, as the JAX package's lin does."""
+    m, params, pm, pp = setup
+    calls = []
+    for name in ("quant_w8a8_matmul_qout", "quant_w8a8_matmul_q8"):
+        fn = getattr(TW.K, name)
+        monkeypatch.setattr(TW.K, name, lambda *a, _fn=fn, _n=name: calls.append(_n) or _fn(*a))
+    lin_t = TW.make_w8a8_linear_impl(TW.quantize_model_params(pm, pp, 4), "fused", 4)
+    lin_j = JW.make_w8a8_linear_impl(JW.quantize_model_params(m, params, 4), "fused", 4)
+    x = np.random.default_rng(9).normal(size=(4, 7, 32)).astype(np.float32)
+    for name in ("encoder.layers.0.self_attn.linears.0", "decoder.layers.1.feed_forward.w_1"):
+        np.testing.assert_array_equal(lin_t(name, torch.from_numpy(x), None, None).numpy(),
+                                      np.asarray(lin_j(name, jnp.asarray(x), None, None)))
+    assert lin_t.linear_q8("decoder.layers.1.src_attn.linears.1", torch.from_numpy(x)) is None
+    assert calls == []
+    # with 8 bits the same calls take K1 and K2
+    lin8 = TW.make_w8a8_linear_impl(TW.quantize_model_params(pm, pp, 8), "fused", 8)
+    lin8("encoder.layers.0.self_attn.linears.0", torch.from_numpy(x), None, None)
+    lin8.linear_q8("decoder.layers.1.src_attn.linears.1", torch.from_numpy(x))
+    assert calls == ["quant_w8a8_matmul_qout", "quant_w8a8_matmul_q8"]
+
+
+def test_quantize_transformer_positional_bits(setup):
+    m, params, pm, pp = setup
+    scales = _act_scales(3, 32)
+    sj, lin_j = JW.quantize_transformer(m, params, scales, 0.5, "int8", 4)
+    st, lin_t = TW.quantize_transformer(pm, pp, scales, 0.5, "int8", 4)
+    assert "generator.proj" not in lin_t.payloads
+    x = _x("decoder.layers.2.src_attn.linears.1", seed=6)
+    for name in ("decoder.layers.2.src_attn.linears.1", "encoder.layers.0.feed_forward.w_1"):
+        np.testing.assert_allclose(lin_t(name, torch.from_numpy(x), None, None).numpy(),
+                                   np.asarray(lin_j(name, jnp.asarray(x), None, None)),
+                                   atol=1e-4, rtol=1e-5)
+    _, lin_g = TW.quantize_transformer(pm, pp, None, 0.5, "int8", 8, True)
+    assert "generator.proj" in lin_g.payloads
