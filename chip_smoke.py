@@ -13,14 +13,18 @@ Phases, each printed on its own line with its seconds:
               K1 (quant_w8a8_matmul_qout) and K2 (quant_w8a8_matmul_q8) bit
               for bit at the main-path shape, a ragged M and the JAX tests'
               shape; K5 (w8a8_matmul) bit for bit at the decode-step shapes,
-              the encoder shape, M=1 with a ragged K, and lead dims; K3
-              (decode_attention_int8) within rtol 1e-5 / atol 1e-4, finite,
-              at the serving shape B=512 T=72 D=512 H=8 with ragged masks and
-              a fully masked row, quantize on and off, and at B=3, T=1,
-              T=1024 and a head width not divisible by 4; K6
-              (quant_w4a8_matmul_qout) and K7 (quant_w4a8_matmul_q8) bit for
-              bit at the int4 path's shape, a ragged M, the JAX test's shape,
-              K=2048 and N=2048; K4 (quant_w8a8_matmul) and K8
+              the encoder shape, M=1 with a ragged K, lead dims and ragged
+              M/K/N, through its wrapper and with each of its four tiles,
+              timed at the serving path's six shapes (each tile too), with
+              the count of tensor-core (IMMA/HGMMA) and dp4a (IDP)
+              instructions in its SASS; K3 (decode_attention_int8) within
+              rtol 1e-5 / atol 1e-4, finite, at the serving shape B=512 T=72
+              D=512 H=8 with ragged masks and a fully masked row, quantize on
+              and off, and at B=3, T=1, T=1024, a head width not divisible
+              by 4, 128-byte heads (two CTAs per sequence) and 16-byte heads;
+              K6 (quant_w4a8_matmul_qout) and K7 (quant_w4a8_matmul_q8) bit
+              for bit at the int4 path's shape, a ragged M, the JAX test's
+              shape, K=2048 and N=2048; K4 (quant_w8a8_matmul) and K8
               (quant_w4a8_matmul) bit for bit at the encoder FFN shape, the
               decode-step shape, M=1 with a ragged K, lead dims, and (K4) the
               K-tiled contract at K=16384 and K=9728.  CUDA-event times of
@@ -48,7 +52,8 @@ Phases, each printed on its own line with its seconds:
               >= 95 % of the tokens; and the chunk-staged decode
               against that one, >= 95 %.  The same decode once more with
               K3's plain version in K3's place, its agreements printed (no
-              gate).  Timed, then profiled as above.
+              gate).  Timed, then profiled as above, with K5's and K3's
+              device ms per decode summed by kernel name.
 6. int4 path  the same model and sources through ``bench.py``'s int4 row:
               packed-int4 payloads, the W4A8 impl, and the chunk-staged decode
               over the unpacked int4 values (max_len 72, chunk 8).  K6 must
@@ -88,6 +93,10 @@ INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
 SM_CLOCK_HZ = 1.98e9   # H100 SXM boost clock: sleep cycles -> seconds
 CSRC = "onnx_transformer_tpu_torch/csrc/"
+# K5's six shapes on the serving path: the decode step's (q, k, v, o,
+# cross-q, cross-o; FFN 1; FFN 2), then the prefill's
+K5_TIME_SHAPES = [((512,), 512, 512), ((512,), 512, 2048), ((512,), 2048, 512),
+                  ((36864,), 512, 512), ((36864,), 512, 2048), ((36864,), 2048, 512)]
 PALLAS = "onnx_transformer_tpu/ops/pallas/"
 # name, its source, the TPU kernel it replaces (file:line of the function)
 KERNELS = {
@@ -331,8 +340,10 @@ def k5_inputs(lead: tuple, k: int, n: int, seed: int, device):
 
 def check_k5(device, shapes, time_shapes) -> dict:
     """Hold K5 bit for bit against its plain version at ``shapes`` ((lead,
-    K, N) tuples) and time it at ``time_shapes``; the first of those (the
-    decode step's) gives the kernel's row."""
+    K, N) tuples) and time it at ``time_shapes``: the kernel, its plain
+    version, ``torch._int_mm`` alone and the bound at each; the first of
+    those (the decode step's) gives the kernel's row, which carries them
+    all under "shapes"."""
     import torch
 
     from onnx_transformer_tpu_torch.ops.kernels import w8a8_matmul as K
@@ -348,6 +359,8 @@ def check_k5(device, shapes, time_shapes) -> dict:
                 raise RuntimeError("the K5 wrapper did not count its launch")
             ref = K.w8a8_matmul_ref(xq.reshape(-1, k), sx.reshape(-1), wq, sw,
                                     b if bias is not None else torch.zeros_like(b))
+            if bias is not None:
+                ref_b = ref
             y = y.reshape(-1, n)
             e = (y - ref).abs().max().item()
             ok = torch.equal(y, ref) and bool(torch.isfinite(y).all())
@@ -356,7 +369,18 @@ def check_k5(device, shapes, time_shapes) -> dict:
             if not ok:
                 raise AssertionError(f"K5 and its plain version differ at {tuple(xq.shape)}")
             err = max(err, e)
-    rows = {}
+        if device.type == "cuda":
+            # every tile configuration, launched directly, bit for bit
+            m = xq.numel() // k
+            for t in range(len(K.W8A8_TILES)):
+                out = torch.empty((m, n), dtype=torch.float32, device=device)
+                K.w8a8_gemm_launch(xq.reshape(m, k), sx.reshape(m), wq, sw, b, out, t)
+                torch.cuda.synchronize(device)
+                if not torch.equal(out, ref_b):
+                    raise AssertionError(f"K5 tile {K.W8A8_TILES[t]} differs at {(m, k, n)}")
+            print(f"kernels w8a8_matmul {(m, k, n)}: all {len(K.W8A8_TILES)} tiles bit-equal",
+                  flush=True)
+    per_shape = []
     for lead, k, n in time_shapes:
         xq, sx, wq, sw, b = k5_inputs(lead, k, n, seed=299, device=device)
         m = xq.numel() // k
@@ -366,14 +390,59 @@ def check_k5(device, shapes, time_shapes) -> dict:
         t_plain_b = cuda_ms(lambda: K.w8a8_matmul_ref(xq, sx, wq, sw, b))
         bms, by = roofline_ms(m * k + m * 4 + k * n + 2 * n * 4 + m * n * 4, 2 * m * n * k,
                               INT8_OPS_PER_S)
-        print(f"time w8a8_matmul at [{m},{k}]x[{k},{n}]: kernel {t_kernel:.6f} ms, "
-              f"plain {t_plain_a:.6f}/{t_plain_b:.6f} ms, bound {bms:.6f} ms ({by}); "
-              f"torch._int_mm alone (partial yardstick) {t_int_mm:.6f} ms", flush=True)
-        rows.setdefault("w8a8", {"ms": t_kernel, "plain_ms": min(t_plain_a, t_plain_b),
-                                 "bound_ms": bms, "bound_by": by, "max_abs_err": err,
-                                 "partial_yardstick": {"call": "torch._int_mm",
-                                                       "ms": t_int_mm}})
-    return rows
+        tile = K.W8A8_TILES[K.plan_w8a8_tile(m, n)[0]]
+        print(f"time w8a8_matmul at [{m},{k}]x[{k},{n}] (tile {tile[0]}x{tile[1]}): kernel "
+              f"{t_kernel:.6f} ms, plain {t_plain_a:.6f}/{t_plain_b:.6f} ms, bound {bms:.6f} "
+              f"ms ({by}); torch._int_mm alone (partial yardstick) {t_int_mm:.6f} ms",
+              flush=True)
+        # every tile at this shape, launched directly (not counted): does the
+        # planner pick the fastest?
+        xq2, sx1 = xq.reshape(m, k), sx.reshape(m)
+        out = torch.empty((m, n), dtype=torch.float32, device=device)
+        tiles_ms = {}
+        for i, (bm, bn) in enumerate(K.W8A8_TILES):
+            if device.type == "cuda":
+                tiles_ms[f"{bm}x{bn}"] = cuda_ms(
+                    lambda: K.w8a8_gemm_launch(xq2, sx1, wq, sw, b, out, i))
+        print(f"time w8a8_matmul tiles at [{m},{k}]x[{k},{n}]: {tiles_ms}", flush=True)
+        per_shape.append({"shape": [m, k, n], "tile": list(tile), "ms": t_kernel,
+                          "plain_ms": min(t_plain_a, t_plain_b), "bound_ms": bms,
+                          "bound_by": by, "int_mm_ms": t_int_mm, "tiles_ms": tiles_ms})
+    first = per_shape[0]
+    return {"w8a8": {"ms": first["ms"], "plain_ms": first["plain_ms"],
+                     "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+                     "max_abs_err": err,
+                     "partial_yardstick": {"call": "torch._int_mm", "ms": first["int_mm_ms"]},
+                     "shapes": per_shape}}
+
+
+def count_sass(sass: str, kernel: str, opcodes=("IMMA", "HGMMA", "IDP")) -> dict:
+    """Instructions of each opcode in the functions of ``cuobjdump -sass``
+    output whose name holds ``kernel``.  IMMA/HGMMA are tensor-core
+    products, IDP the dp4a."""
+    counts = dict.fromkeys(opcodes, 0)
+    inside = False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside:
+            for op in opcodes:
+                if f" {op}." in line or f" {op} " in line:
+                    counts[op] += 1
+    return counts
+
+
+def sass_counts(library: str, kernel: str) -> dict | None:
+    """:func:`count_sass` of the built library, or None where the toolkit
+    has no cuobjdump."""
+    from onnx_transformer_tpu_torch.ops.kernels import build
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    return count_sass(sass, kernel)
 
 
 def k3_inputs(b: int, t: int, d: int, seed: int, device, masked_row=None):
@@ -481,6 +550,14 @@ def profile_decode(decode, sync, wall_s: float) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"profile {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
               f"{e.key[:90]}", flush=True)
+    return {"busy_ms": busy_ms,
+            "by_kernel": {e.key: (e.self_device_time_total / 1e3, e.count) for e in kernels}}
+
+
+def device_ms_of(profile: dict | None, name: str) -> tuple[float, int]:
+    """Device ms and launches of the kernels whose name holds ``name``."""
+    hits = [v for k, v in (profile or {}).get("by_kernel", {}).items() if name in k]
+    return sum(ms for ms, _ in hits), sum(n for _, n in hits)
 
 
 def build_iwslt(device, num_layers: int, batch: int, src_len: int) -> dict:
@@ -640,7 +717,11 @@ def run_serving_path(device, base: dict, max_len: int, card: str = "") -> dict:
     print(f"serving path B={batch} S={src_len} max_len={max_len}: {dt:.6f} s per decode, "
           f"{dt / max_len * 1e3:.6f} ms per step, {tokens / dt:.3f} tokens/s on {card}",
           flush=True)
-    profile_decode(lambda: decode(linp, True), torch.cuda.synchronize, dt)
+    prof = profile_decode(lambda: decode(linp, True), torch.cuda.synchronize, dt)
+    for label, kname in (("K5", "w8a8_gemm_kernel"), ("K3", "decode_attn_kernel")):
+        ms, count = device_ms_of(prof, kname)
+        print(f"profile serving {label} ({kname}): {ms:.3f} ms of device time in {count} "
+              f"launches per decode", flush=True)
     return {"launches": launches, "seconds": dt, "agree": agree, "agree_chunked": agree_c,
             "agree_plain_attn": agree_r}
 
@@ -824,10 +905,13 @@ def main() -> int:
                                       ((48,), 64, 96)], ((512, 72), 512, 512))
         rows.update(check_k5(device, [((512,), 512, 512), ((512,), 512, 2048),
                                       ((512,), 2048, 512), ((36864,), 512, 512),
-                                      ((1,), 300, 96), ((4, 15), 128, 128)],
-                             [((512,), 512, 512), ((36864,), 512, 2048)]))
+                                      ((1,), 300, 96), ((4, 15), 128, 128),
+                                      ((1000,), 512, 96), ((129,), 304, 200)], K5_TIME_SHAPES))
+        counts = sass_counts(build.build_info["path"], "w8a8_gemm_kernel")
+        print(f"kernels w8a8_matmul SASS instructions (cuobjdump): {counts}", flush=True)
         rows.update(check_k3(device, [(512, 72, 512, 8), (3, 72, 512, 8), (3, 1, 512, 8),
-                                      (4, 1024, 512, 8), (2, 9, 18, 3)], (512, 72, 512, 8)))
+                                      (4, 1024, 512, 8), (2, 9, 18, 3), (3, 72, 1024, 8),
+                                      (5, 33, 256, 16)], (512, 72, 512, 8)))
         rows.update(check_kernels(device, [((512, 72), 512, 512), ((1000,), 512, 512),
                                            ((24,), 64, 96), ((64,), 2048, 512),
                                            ((64,), 512, 2048)], ((512, 72), 512, 512),

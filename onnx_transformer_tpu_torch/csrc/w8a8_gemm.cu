@@ -1,5 +1,5 @@
-// W8A8 matmul of pre-quantized activations for Hopper (sm_90a), with a
-// plain C interface for ctypes.
+// W8A8 matmul of pre-quantized activations for Hopper (sm_90a) on the
+// tensor cores, with a plain C interface for ctypes.
 //
 // Replaces the TPU kernel of onnx_transformer_tpu/ops/pallas/w8a8_matmul.py:
 //   K5 w8a8_gemm <- w8a8_matmul / _w8a8_kernel
@@ -12,134 +12,340 @@
 // __fadd_rn, __int2float_rn; nothing is contracted into an FMA), so the
 // output is bit-equal to the plain PyTorch version
 // (ops/kernels/w8a8_matmul.w8a8_matmul_ref) and to the "int8" chain of
-// quant/w8a8.py.  Any M (M = 1 included), any K (a ragged last K tile is
-// zero-filled, which adds nothing to the sums) and any N: the edges are
-// masked here, where the TPU grid needed N divisible by its block.
+// quant/w8a8.py.  int32 sums of int8 products are exact in any order, so
+// the tiling and the mma fragment order cannot change a bit.  Any M (M = 1
+// included), any K and any N: ragged tiles are zero-filled (zeros add
+// nothing) and the stores are masked.
 //
-// Bound on the H100 SXM (3.35 TB/s, 1979 int8 TOP/s) at the decode-step
-// shape [512,512] x [512,512]: memory.  xq, wq and the f32 output are 1.6 MB:
-// 0.47 us; the 0.27 GOP of products need 0.14 us at the tensor-core rate.
+// Bounds on the H100 SXM (3.35 TB/s, 1979 int8 TOP/s), by the serving
+// path's six shapes: the decode step's [512,512]x[512,512] (q, k, v, o,
+// cross-q, cross-o), [512,512]x[512,2048] and [512,2048]x[2048,512] move
+// 1.6-5.2 MB for 0.27-1.07 GOP, so bytes bound them (0.5-1.6 us), and a
+// launch, the pipeline's fill and the K loop's latency take most of the
+// real time; the prefill's [36864,512]x[512,{512,2048}] and
+// [36864,2048]x[2048,512] are bound by the f32 output they write (75-302
+// MB), with the products 2-3x below that on the tensor cores.
 //
-// Design.  One CTA of 256 threads per 64x64 output tile; K is walked in
-// tiles of 32.  Each tile of xq and wq is staged in shared memory as 32-bit
-// words of 4 consecutive k (for W that means repacking 4 rows of a column
-// into one word), and each thread accumulates a 4x4 block of outputs with
-// __dp4a on two 16-byte shared loads per 4 k.  The epilogue scales in
-// registers and writes f32 once.
+// Design.  Products on the tensor cores: mma.sync m16n8k32 s8.s8.s32,
+// operands from shared memory by ldmatrix.  The tile comes from the shape
+// (ops/kernels/w8a8_matmul.plan_w8a8_tile, passed in as `tile`): 128x128
+// with 8 warps at the prefill's 36,864 rows, and at M = 512 the largest of
+// 64x64, 64x32 or 32x32 (4 warps) that gives at least 256 CTAs, two for
+// each of the 132 SMs (timed on the card: 32x32 at N = 512, 64x64 at
+// N = 2048; a ring of 8 stages was slower than 4).
+// One launch per call, no split-K.  K goes in tiles of 64 through a ring of
+// 3-4 stages of cp.async copies (16 B per thread), so the copies of the
+// next tiles overlap the products of this one.
+//   The W layout: s8 mma needs K-major operands for both A and B, and
+// ldmatrix .trans and TMA do not transpose bytes.  wq is [K,N],
+// N-contiguous, as the JAX package passes it.  So the raw [64,BN] W tile
+// is copied as it is (cp.async, 16 B), and every thread of the CTA then
+// transposes 4x4-byte blocks with byte permutes into a K-major [BN,64]
+// tile that ldmatrix reads.  That costs BN*64 bytes of shared-memory
+// traffic each way per K tile (2-way bank conflicts on the reads, none on
+// the stores), well below what the warps' ldmatrix calls read, and it
+// keeps w8a8_matmul's JAX signature and one weight copy in device memory
+// (a K-major copy kept beside each weight would double the weights'
+// memory and need a second path for callers that pass wq alone).  Shared
+// rows are padded to 80 bytes, so ldmatrix reads are free of bank
+// conflicts.
+// The epilogue scales in registers and writes f32 once, two columns per
+// 8-byte store.  K % 16 != 0, N % 16 != 0 or an unaligned base take the same
+// kernel with byte loads in place of cp.async.
 //
-// What this simple design leaves on the table: __dp4a runs on the integer
-// pipes, far below the tensor cores' int8 rate (mma.sync or wgmma with
-// TMA-fed tiles is the later fix); no copy overlaps compute; at M = 512 the
-// grid has only 64 to 256 CTAs for 132 SMs.
+// What it still leaves on the table: wgmma fed by TMA (this card's full
+// int8 rate needs warpgroup products and a producer warp, with the W tile
+// then from a K-major copy of the weights); persistent CTAs, so that one
+// tile's epilogue overlaps the next one's loads; the transpose's share of
+// shared-memory traffic and its barrier; and the per-token quantize chain
+// in front of every call (absmax, abs, round, cast: about 80 ms of device
+// time per serving decode), which K4's contract fuses into the same
+// product.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBM = 64;            // output rows per CTA
-constexpr int kBN = 64;            // output columns per CTA
-constexpr int kBK = 32;            // K depth per tile
-constexpr int kKW = kBK / 4;       // packed words per row per tile
-constexpr int kStride = kBM + 4;   // padded word stride (16 B aligned, no store conflicts)
+constexpr int kBK = 64;               // K bytes per tile: two k32 mma steps
+constexpr int kRow = kBK + 16;        // padded shared row of a K-major tile
 
-__device__ __forceinline__ int load_x_word(const int8_t* __restrict__ xq, int m, int k,
-                                           int M, int K, bool aligned) {
-  if (m >= M) return 0;
-  const int8_t* p = xq + (size_t)m * K + k;
-  if (aligned && k + 3 < K) return *reinterpret_cast<const int*>(p);
-  unsigned int w = 0u;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (k + j < K) w |= static_cast<unsigned int>(static_cast<unsigned char>(p[j])) << (8 * j);
-  return static_cast<int>(w);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ int load_w_word(const int8_t* __restrict__ wq, int k, int n,
-                                           int K, int N) {
-  if (n >= N) return 0;
-  unsigned int w = 0u;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (k + j < K)
-      w |= static_cast<unsigned int>(static_cast<unsigned char>(wq[(size_t)(k + j) * N + n]))
-           << (8 * j);
-  return static_cast<int>(w);
+// 16-byte async copy; src_bytes = 0 zero-fills the destination.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0, uint32_t& r1,
+                                            uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// c += a (16x32 s8, row) * b (32x8 s8, col), int32 accumulators.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int BM_, int BN_, int WM_, int WN_, int STAGES_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_, STAGES = STAGES_;
+  static constexpr int kWarpsM = BM / WM, kWarpsN = BN / WN;
+  static constexpr int kThreads = 32 * kWarpsM * kWarpsN;
+  static constexpr int MI = WM / 16, NI = WN / 8;
+  static constexpr int kWRow = BN + 16;                  // padded raw W row
+  static constexpr int kABytes = BM * kRow;              // K-major X tile
+  static constexpr int kStage = kABytes + kBK * kWRow;   // X tile + raw W tile
+  static constexpr int kSmem = STAGES * kStage + BN * kRow;  // + the K-major W tile
+  static_assert(NI % 2 == 0, "ldmatrix.x4 loads B for two n8 blocks");
+};
+
+// The tile configurations, by the index that plan_w8a8_tile returns.
+using Tile0 = Tile<128, 128, 64, 32, 3>;
+using Tile1 = Tile<64, 64, 32, 32, 4>;
+using Tile2 = Tile<64, 32, 32, 16, 4>;
+using Tile3 = Tile<32, 32, 16, 16, 4>;
+
+// Row k of a raw W tile ([64, BN] as stored) lies at raw_row(k): the rows
+// are grouped by k % 4, so that the transpose's 4x4 blocks read from 16
+// neighbouring rows at once (2-way bank conflicts, against 8-way or worse
+// for rows in order).
+template <class C>
+__device__ __forceinline__ int raw_row(int k) {
+  return ((k & 3) * (kBK / 4) + (k >> 2)) * C::kWRow;
+}
+
+// Copy K tile k0 of X ([BM, 64], K-major) and W ([64, BN] as stored) into
+// one stage of the ring: cp.async when kVec, else byte loads.
+template <class C, bool kVec>
+__device__ __forceinline__ void stage_tile(uint8_t* stage, const int8_t* __restrict__ xq,
+                                           const int8_t* __restrict__ wq, int m0, int n0,
+                                           int k0, int M, int K, int N) {
+  uint8_t* as = stage;
+  uint8_t* ws = stage + C::kABytes;
+  const int tid = threadIdx.x;
+  if (kVec) {
+    for (int c = tid; c < C::BM * (kBK / 16); c += C::kThreads) {
+      const int r = c >> 2, kc = (c & 3) * 16;
+      const int m = m0 + r, k = k0 + kc;
+      const bool ok = m < M && k < K;
+      cp_async16(smem_u32(as + r * kRow + kc), ok ? xq + (size_t)m * K + k : xq, ok ? 16 : 0);
+    }
+    constexpr int kWChunks = C::BN / 16;
+    for (int c = tid; c < kBK * kWChunks; c += C::kThreads) {
+      const int r = c / kWChunks, nc = (c % kWChunks) * 16;
+      const int k = k0 + r, n = n0 + nc;
+      const bool ok = k < K && n < N;
+      cp_async16(smem_u32(ws + raw_row<C>(r) + nc), ok ? wq + (size_t)k * N + n : wq,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int c = tid; c < C::BM * kBK; c += C::kThreads) {
+      const int r = c / kBK, kc = c % kBK;
+      const int m = m0 + r, k = k0 + kc;
+      as[r * kRow + kc] = (m < M && k < K) ? static_cast<uint8_t>(xq[(size_t)m * K + k]) : 0;
+    }
+    for (int c = tid; c < kBK * C::BN; c += C::kThreads) {
+      const int r = c / C::BN, nc = c % C::BN;
+      const int k = k0 + r, n = n0 + nc;
+      ws[raw_row<C>(r) + nc] = (k < K && n < N) ? static_cast<uint8_t>(wq[(size_t)k * N + n]) : 0;
+    }
+  }
+}
+
+// Raw W tile [64, BN] -> K-major [BN, 64]: each task turns a 4x4 block of
+// bytes (4 k rows of 4 columns) into 4 words of 4 consecutive k.  The 16
+// k blocks are the fastest task index, so a warp's stores fall in 32
+// distinct banks.
+template <class C>
+__device__ __forceinline__ void transpose_w(const uint8_t* __restrict__ ws,
+                                            uint8_t* __restrict__ bt) {
+  constexpr int kQuads = kBK / 4;
+  constexpr int kStep = kQuads * C::kWRow;   // raw_row(k + 1) - raw_row(k) within a block
+  for (int task = threadIdx.x; task < kQuads * (C::BN / 4); task += C::kThreads) {
+    const int kq = task % kQuads, cg = task / kQuads;
+    const uint8_t* src = ws + raw_row<C>(4 * kq) + 4 * cg;
+    const uint32_t a = *reinterpret_cast<const uint32_t*>(src);
+    const uint32_t b = *reinterpret_cast<const uint32_t*>(src + kStep);
+    const uint32_t c = *reinterpret_cast<const uint32_t*>(src + 2 * kStep);
+    const uint32_t d = *reinterpret_cast<const uint32_t*>(src + 3 * kStep);
+    const uint32_t t0 = __byte_perm(a, b, 0x5140);   // a0 b0 a1 b1
+    const uint32_t t1 = __byte_perm(a, b, 0x7362);   // a2 b2 a3 b3
+    const uint32_t t2 = __byte_perm(c, d, 0x5140);
+    const uint32_t t3 = __byte_perm(c, d, 0x7362);
+    uint8_t* dst = bt + (4 * cg) * kRow + 4 * kq;
+    *reinterpret_cast<uint32_t*>(dst) = __byte_perm(t0, t2, 0x5410);            // column 0
+    *reinterpret_cast<uint32_t*>(dst + kRow) = __byte_perm(t0, t2, 0x7632);     // column 1
+    *reinterpret_cast<uint32_t*>(dst + 2 * kRow) = __byte_perm(t1, t3, 0x5410); // column 2
+    *reinterpret_cast<uint32_t*>(dst + 3 * kRow) = __byte_perm(t1, t3, 0x7632); // column 3
+  }
+}
+
+template <class C, bool kVec>
+__global__ void __launch_bounds__(C::kThreads)
 w8a8_gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
                  const int8_t* __restrict__ wq, const float* __restrict__ sw,
-                 const float* __restrict__ bias, float* __restrict__ out,
-                 int M, int K, int N, bool aligned) {
-  __shared__ __align__(16) int As[kKW][kStride];   // [k word][row]
-  __shared__ __align__(16) int Bs[kKW][kStride];   // [k word][column]
+                 const float* __restrict__ bias, float* __restrict__ out, int M, int K,
+                 int N) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* bt = smem + C::STAGES * C::kStage;
+  const int m0 = blockIdx.x * C::BM;
+  const int n0 = blockIdx.y * C::BN;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wm = (warp % C::kWarpsM) * C::WM;
+  const int wn = (warp / C::kWarpsM) * C::WN;
+  const int nk = (K + kBK - 1) / kBK;
 
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int ty = tid / 16;          // rows ty*4 .. +3
-  const int tx = tid % 16;          // columns tx*4 .. +3
-  const int a_kw = tid & 7;         // A tile load: word a_kw of rows a_r, a_r + 32
-  const int a_r = tid >> 3;
-  const int b_n = tid & 63;         // B tile load: column b_n, words b_kw, b_kw + 4
-  const int b_kw = tid >> 6;
+  int acc[C::MI][C::NI][4];
+#pragma unroll
+  for (int i = 0; i < C::MI; ++i)
+#pragma unroll
+    for (int j = 0; j < C::NI; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
 
-  int acc[4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    As[a_kw][a_r] = load_x_word(xq, m0 + a_r, k0 + 4 * a_kw, M, K, aligned);
-    As[a_kw][a_r + 32] = load_x_word(xq, m0 + a_r + 32, k0 + 4 * a_kw, M, K, aligned);
-    Bs[b_kw][b_n] = load_w_word(wq, k0 + 4 * b_kw, n0 + b_n, K, N);
-    Bs[b_kw + 4][b_n] = load_w_word(wq, k0 + 4 * (b_kw + 4), n0 + b_n, K, N);
-    __syncthreads();
-#pragma unroll
-    for (int kw = 0; kw < kKW; ++kw) {
-      const int4 a = *reinterpret_cast<const int4*>(&As[kw][ty * 4]);
-      const int4 b = *reinterpret_cast<const int4*>(&Bs[kw][tx * 4]);
-      const int av[4] = {a.x, a.y, a.z, a.w};
-      const int bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < C::STAGES - 1; ++s) {
+    if (s < nk) stage_tile<C, kVec>(smem + s * C::kStage, xq, wq, m0, n0, s * kBK, M, K, N);
+    cp_async_commit();
   }
 
+  // ldmatrix lane addresses inside a tile: A rows (lane & 15), k half
+  // (lane >> 4); B columns (lane & 7) + 8 * (lane >> 4), k half ((lane >> 3) & 1)
+  const int a_off = (wm + (lane & 15)) * kRow + (lane >> 4) * 16;
+  const int b_off = (wn + (lane & 7) + ((lane >> 4) << 3)) * kRow + ((lane >> 3) & 1) * 16;
+
+  for (int i = 0; i < nk; ++i) {
+    cp_async_wait<C::STAGES - 2>();
+    __syncthreads();   // tile i has landed; every warp is done with tile i - 1
+    const int next = i + C::STAGES - 1;
+    if (next < nk)
+      stage_tile<C, kVec>(smem + (next % C::STAGES) * C::kStage, xq, wq, m0, n0, next * kBK,
+                          M, K, N);
+    cp_async_commit();
+    const uint8_t* as = smem + (i % C::STAGES) * C::kStage;
+    transpose_w<C>(as + C::kABytes, bt);
+    __syncthreads();   // the K-major W tile is complete
+    const uint32_t a_base = smem_u32(as) + a_off;
+    const uint32_t b_base = smem_u32(bt) + b_off;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-    const float sxm = sx[m];
+    for (int kk = 0; kk < kBK / 32; ++kk) {
+      uint32_t a[C::MI][4];
+      uint32_t b[C::NI][2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N)
-        out[(size_t)m * N + n] = __fadd_rn(
-            __fmul_rn(__int2float_rn(acc[i][j]), __fmul_rn(sxm, sw[n])), bias[n]);
+      for (int mi = 0; mi < C::MI; ++mi)
+        ldmatrix_x4(a_base + mi * 16 * kRow + kk * 32, a[mi][0], a[mi][1], a[mi][2], a[mi][3]);
+#pragma unroll
+      for (int np = 0; np < C::NI / 2; ++np)
+        ldmatrix_x4(b_base + np * 16 * kRow + kk * 32, b[2 * np][0], b[2 * np][1],
+                    b[2 * np + 1][0], b[2 * np + 1][1]);
+#pragma unroll
+      for (int mi = 0; mi < C::MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < C::NI; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
     }
   }
+
+  // Accumulator fragment of lane (g = lane / 4, t = lane % 4): rows g and
+  // g + 8 of the 16x8 block, columns 2t and 2t + 1.
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const bool pairs = (N & 1) == 0;
+#pragma unroll
+  for (int mi = 0; mi < C::MI; ++mi) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm + mi * 16 + g + half * 8;
+      if (m >= M) continue;
+      const float sxm = sx[m];
+      float* orow = out + (size_t)m * N;
+#pragma unroll
+      for (int ni = 0; ni < C::NI; ++ni) {
+        const int n = n0 + wn + ni * 8 + t2;
+        if (n >= N) continue;
+        const float y0 = __fadd_rn(
+            __fmul_rn(__int2float_rn(acc[mi][ni][2 * half]), __fmul_rn(sxm, sw[n])), bias[n]);
+        if (n + 1 < N) {
+          const float y1 = __fadd_rn(
+              __fmul_rn(__int2float_rn(acc[mi][ni][2 * half + 1]), __fmul_rn(sxm, sw[n + 1])),
+              bias[n + 1]);
+          if (pairs) {
+            *reinterpret_cast<float2*>(orow + n) = make_float2(y0, y1);
+          } else {
+            orow[n] = y0;
+            orow[n + 1] = y1;
+          }
+        } else {
+          orow[n] = y0;
+        }
+      }
+    }
+  }
+}
+
+template <class C, bool kVec>
+int launch_tile(const int8_t* xq, const float* sx, const int8_t* wq, const float* sw,
+                const float* b, float* out, int M, int K, int N, cudaStream_t stream) {
+  // the shared-memory opt-in is set once per process for each instance
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      w8a8_gemm_kernel<C, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((M + C::BM - 1) / C::BM, (N + C::BN - 1) / C::BN);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  w8a8_gemm_kernel<C, kVec><<<grid, C::kThreads, C::kSmem, stream>>>(xq, sx, wq, sw, b, out,
+                                                                     M, K, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class C>
+int launch_cfg(bool vec, const int8_t* xq, const float* sx, const int8_t* wq, const float* sw,
+               const float* b, float* out, int M, int K, int N, cudaStream_t stream) {
+  return vec ? launch_tile<C, true>(xq, sx, wq, sw, b, out, M, K, N, stream)
+             : launch_tile<C, false>(xq, sx, wq, sw, b, out, M, K, N, stream);
 }
 
 }  // namespace
 
-// K5: out f32 [M,N].  Returns a cudaError_t (0 = launched).
+// K5: out f32 [M,N] with the tile configuration `tile` (0: 128x128,
+// 1: 64x64, 2: 64x32, 3: 32x32).  Returns a cudaError_t (0 = launched).
 extern "C" int w8a8_gemm(const void* xq, const void* sx, const void* wq, const void* sw,
-                         const void* b, void* out, int M, int K, int N, void* stream) {
+                         const void* b, void* out, int M, int K, int N, int tile,
+                         void* stream) {
   if (M <= 0 || K <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if ((M + kBM - 1) / kBM > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  // whole-word loads of xq rows need K % 4 == 0 and a 4-byte aligned base
-  const bool aligned = K % 4 == 0 && (reinterpret_cast<uintptr_t>(xq) & 3) == 0;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  w8a8_gemm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(sx),
-      static_cast<const int8_t*>(wq), static_cast<const float*>(sw),
-      static_cast<const float*>(b), static_cast<float*>(out), M, K, N, aligned);
-  return static_cast<int>(cudaGetLastError());
+  // 16-byte copies need whole 16-byte chunks of every row and aligned bases
+  const bool vec = K % 16 == 0 && N % 16 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(xq) | reinterpret_cast<uintptr_t>(wq)) & 15) == 0;
+  const auto* x8 = static_cast<const int8_t*>(xq);
+  const auto* w8 = static_cast<const int8_t*>(wq);
+  const auto* sxf = static_cast<const float*>(sx);
+  const auto* swf = static_cast<const float*>(sw);
+  const auto* bf = static_cast<const float*>(b);
+  auto* o = static_cast<float*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (tile) {
+    case 0: return launch_cfg<Tile0>(vec, x8, sxf, w8, swf, bf, o, M, K, N, st);
+    case 1: return launch_cfg<Tile1>(vec, x8, sxf, w8, swf, bf, o, M, K, N, st);
+    case 2: return launch_cfg<Tile2>(vec, x8, sxf, w8, swf, bf, o, M, K, N, st);
+    case 3: return launch_cfg<Tile3>(vec, x8, sxf, w8, swf, bf, o, M, K, N, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

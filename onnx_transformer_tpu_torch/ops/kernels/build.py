@@ -32,8 +32,8 @@ SIGNATURES = {
     "quant_w4a8_q8": "ppppppiiip",
     "quant_w8a8_gemm": "pppppiiip",
     "quant_w4a8_gemm": "pppppiiip",
-    "w8a8_gemm": "ppppppiiip",
-    "decode_attention_int8": "pppppppiiiifip",
+    "w8a8_gemm": "ppppppiiiip",
+    "decode_attention_int8": "pppppppiiiiifip",
 }
 
 _lib = None

@@ -9,6 +9,8 @@ probabilities rounded as ``round(p*127)/127``) and which the card check
 holds the kernel against (rtol 1e-5, atol 1e-4: the sums run in another
 order).  ``decode_attention_int8_oracle`` is the JAX package's oracle
 (dequantize first, then attend), the reference of both in the tests.
+:func:`plan_decode_attention` chooses how many heads one CTA of the kernel
+takes (all of them at the serving shape: one CTA per sequence).
 """
 
 from __future__ import annotations
@@ -21,7 +23,28 @@ from onnx_transformer_tpu_torch.ops.layers import NEG_INF, quantize_probs
 from onnx_transformer_tpu_torch.quant.core import true_div
 
 MAX_DK = 128      # head width the kernel takes
-MAX_T = 16384     # cache length: 2*T floats of shared memory per CTA
+MAX_T = 16384     # cache length: hg*T scores in shared memory per CTA
+MAX_GROUP_BYTES = 512   # a CTA's slice of a cache row: one 16-byte load per lane
+MAX_SMEM = 200 * 1024   # shared memory per CTA (csrc/decode_attention.cu kMaxSmem)
+WARPS = 8               # per CTA
+
+
+def plan_decode_attention(t: int, d: int, h: int) -> int:
+    """K3's heads per CTA: the largest divisor ``hg`` of ``h`` whose slice of
+    a row (hg * dk bytes) is at most ``MAX_GROUP_BYTES`` and whose scores
+    (hg * T floats) and, for 16-byte loads, the 8 warps' partial context
+    sums (8 * hg * dk floats) fit in ``MAX_SMEM``.  The grid is B x (h / hg)
+    CTAs; at the serving shape (T=72, D=512, H=8) hg = 8, one CTA per
+    sequence."""
+    dk = d // h
+    vec = dk in (16, 32, 64, 128)
+    for hg in range(h, 0, -1):
+        if h % hg or hg * dk > MAX_GROUP_BYTES:
+            continue
+        smem = 4 * (-(-hg * t // 4) * 4 + (WARPS * hg * dk if vec else 0))
+        if smem <= MAX_SMEM:
+            return hg
+    raise ValueError(f"T={t} does not fit one head's scores in shared memory")
 
 
 def _inv_sqrt_dk(dk: int) -> float:
@@ -103,7 +126,8 @@ def decode_attention_int8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     if b:
         launch("decode_attention_int8", kq.device, *[x.data_ptr() for x in ops],
                m8.data_ptr(), out.data_ptr(), b, t, d, num_heads,
-               _inv_sqrt_dk(d // num_heads), int(quantize))
+               plan_decode_attention(t, d, num_heads), _inv_sqrt_dk(d // num_heads),
+               int(quantize))
         decode_attention_int8.launches += 1
     return out
 

@@ -6,7 +6,9 @@
   ``quant_w4a8_matmul_q8`` are the same over packed-int4 weights (uint8
   [K/2, N] nibble pairs, ``quant.core.pack_int4``), in the same source.
 - K5 ``w8a8_matmul``: int8 matmul of pre-quantized activations with the
-  ``acc * (sx * sw) + b`` epilogue (``csrc/w8a8_gemm.cu``).
+  ``acc * (sx * sw) + b`` epilogue on the tensor cores
+  (``csrc/w8a8_gemm.cu``), its tile chosen from the shape by
+  :func:`plan_w8a8_tile`.
 - K4 ``quant_w8a8_matmul`` and K8 ``quant_w4a8_matmul``: the per-token
   quantize fused in front of K5's product and epilogue, over int8 or
   packed-int4 weights, at any K (``csrc/quant_gemm.cu``).
@@ -27,6 +29,25 @@ from onnx_transformer_tpu_torch.quant.core import act_scale_per_token, quantize,
 
 MAX_KN = 2048      # K1/K2/K6/K7: the TPU kernels' single-block limit on K and N
 MAX_K_W4A8 = 4096  # K8: the TPU kernel's limit on K
+
+# K5's output tiles (BM, BN), by the index the kernel takes
+# (``csrc/w8a8_gemm.cu``: 128x128 with 8 warps, the others with 4)
+W8A8_TILES = ((128, 128), (64, 64), (64, 32), (32, 32))
+# two CTAs for each of the H100's 132 SMs, near enough: the fastest of the
+# four tiles at every serving shape timed on the card (PERF.md)
+W8A8_MIN_CTAS = 256
+
+
+def plan_w8a8_tile(m: int, n: int) -> tuple[int, int, int]:
+    """K5's tile for an [m, K] x [K, n] product: the largest of
+    ``W8A8_TILES`` whose grid has at least ``W8A8_MIN_CTAS`` CTAs, else the
+    smallest.  Returns (tile index, CTAs along M, CTAs along N): the
+    kernel's grid, blockIdx.x over M and blockIdx.y over N."""
+    for i, (bm, bn) in enumerate(W8A8_TILES):
+        grid = (-(-m // bm), -(-n // bn))
+        if grid[0] * grid[1] >= W8A8_MIN_CTAS:
+            return (i, *grid)
+    return (i, *grid)
 
 
 def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -259,10 +280,19 @@ def w8a8_matmul(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
     m = xq2.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
     if m:
-        launch("w8a8_gemm", xq.device, *_ptrs(xq=xq2, sx=sx1, wq=wq, sw=sw, b=b),
-               out.data_ptr(), m, k, n)
+        w8a8_gemm_launch(xq2, sx1, wq, sw, b, out, plan_w8a8_tile(m, n)[0])
         w8a8_matmul.launches += 1
     return out.reshape(*lead, n)
+
+
+def w8a8_gemm_launch(xq2, sx1, wq, sw, b, out, tile: int) -> None:
+    """Launch K5's kernel with the tile ``tile`` of ``W8A8_TILES`` on
+    checked CUDA operands (xq2 [M, K], sx1 [M], out [M, N]); counts
+    nothing.  The wrapper calls it with the planner's tile; the card check
+    also times the other tiles through it."""
+    m, k = xq2.shape
+    launch("w8a8_gemm", xq2.device, *_ptrs(xq=xq2, sx=sx1, wq=wq, sw=sw, b=b, out=out),
+           m, k, wq.shape[1], tile)
 
 
 for _fn in (quant_w8a8_matmul_qout, quant_w8a8_matmul_q8, quant_w4a8_matmul_qout,

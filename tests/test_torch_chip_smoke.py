@@ -41,8 +41,17 @@ def rehearsal(monkeypatch):
 
 def test_kernel_checks(rehearsal):
     rows = C.check_kernels(CPU, [((4, 7), 64, 96)], ((4, 7), 64, 96))
+    k5_times = [((16,), 64, 64), ((16,), 64, 256), ((16,), 256, 64), ((40,), 64, 64)]
     rows.update(C.check_k5(CPU, [((5,), 64, 96), ((1,), 300, 96), ((4, 15), 128, 128)],
-                           [((16,), 64, 64)]))
+                           k5_times))
+    # K5's row carries a time at every shape it was timed at, the first (the
+    # decode step's) in its top-level keys
+    shapes = rows["w8a8"]["shapes"]
+    assert [s["shape"] for s in shapes] == [[m, k, n] for (m,), k, n in k5_times]
+    for s in shapes:
+        assert {"ms", "plain_ms", "bound_ms", "bound_by", "int_mm_ms", "tile"} <= set(s)
+        assert s["bound_ms"] > 0
+    assert rows["w8a8"]["bound_ms"] == shapes[0]["bound_ms"]
     rows.update(C.check_k3(CPU, [(6, 9, 64, 4), (3, 1, 64, 4), (2, 9, 18, 3)], (6, 9, 64, 4)))
     rows.update(C.check_kernels(CPU, [((4, 7), 64, 96), ((3,), 128, 32)], ((4, 7), 64, 96),
                                 packed=True))
@@ -94,3 +103,32 @@ def test_bounds():
     assert by == "bytes" and np.isclose(ms, 1.0)
     ms, by = C.roofline_ms(1.0, 1979e9, C.INT8_OPS_PER_S)
     assert by == "operations" and np.isclose(ms, 1.0)
+
+
+def test_count_sass():
+    """The tensor-core and dp4a instructions of one kernel's functions in
+    cuobjdump's SASS listing; other functions are not counted."""
+    sass = """
+        Function : _ZN12_GLOBAL__N_116w8a8_gemm_kernelINS_4TileILi64EEELb1EEEvPKa
+        /*0100*/                   LDSM.16.M88.4 R8, [R2] ;
+        /*0110*/                   IMMA.16832.S8.S8 R24, R8.ROW, R20.COL, R24 ;
+        /*0120*/                   IMMA.16832.S8.S8 R28, R8.ROW, R22.COL, R28 ;
+        Function : _ZN12_GLOBAL__N_116quant_w8a8_kernelILi32EEEvPKf
+        /*0100*/                   IDP.4A.S8.S8 R4, R5, R6, R4 ;
+        Function : _ZN12_GLOBAL__N_116w8a8_gemm_kernelINS_4TileILi32EEELb0EEEvPKa
+        /*0200*/                   IMMA.16832.S8.S8 R24, R8.ROW, R20.COL, R24 ;
+    """
+    assert C.count_sass(sass, "w8a8_gemm_kernel") == {"IMMA": 3, "HGMMA": 0, "IDP": 0}
+    assert C.count_sass(sass, "quant_w8a8_kernel") == {"IMMA": 0, "HGMMA": 0, "IDP": 1}
+
+
+def test_device_ms_of():
+    """Device ms and launches summed over the kernels whose name matches,
+    as the serving path reports K5 and K3 per decode."""
+    prof = {"busy_ms": 9.0, "by_kernel": {
+        "void (anonymous namespace)::w8a8_gemm_kernel<Tile<64, 32>, true>(...)": (3.0, 30),
+        "void (anonymous namespace)::w8a8_gemm_kernel<Tile<128, 128>, true>(...)": (2.5, 4),
+        "void (anonymous namespace)::decode_attn_kernel<true>(...)": (1.5, 12)}}
+    assert C.device_ms_of(prof, "w8a8_gemm_kernel") == (5.5, 34)
+    assert C.device_ms_of(prof, "decode_attn_kernel") == (1.5, 12)
+    assert C.device_ms_of(None, "decode_attn_kernel") == (0, 0)

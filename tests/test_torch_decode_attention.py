@@ -119,3 +119,34 @@ def test_wrapper_rejects_bad_inputs(bad):
         mask = mask[:, :-1]
     with pytest.raises(ValueError):
         K.decode_attention_int8(q, kq, ks, vq, vs, mask, num_heads=h)
+
+
+@pytest.mark.parametrize("t,d,h", [(72, 512, 8), (1, 512, 8), (1024, 512, 8), (9, 18, 3),
+                                   (72, 1024, 8), (33, 256, 16), (16384, 512, 8),
+                                   (16384, 1024, 8), (5, 10, 5)])
+def test_head_group_plan(t, d, h):
+    """K3's heads per CTA: a divisor of H, a row slice of at most 512 bytes
+    (one 16-byte load per lane of a warp), scores and partial sums within
+    the shared-memory cap; the grid's B x H/hg CTAs then cover every head of
+    every sequence once."""
+    hg = K.plan_decode_attention(t, d, h)
+    dk = d // h
+    assert h % hg == 0 and hg * dk <= K.MAX_GROUP_BYTES
+    partial = K.WARPS * hg * dk if dk in (16, 32, 64, 128) else 0
+    assert 4 * (-(-hg * t // 4) * 4 + partial) <= K.MAX_SMEM
+    heads = np.zeros(h, np.int32)
+    for y in range(h // hg):
+        heads[y * hg:(y + 1) * hg] += 1
+    assert (heads == 1).all()
+
+
+def test_head_group_plan_serving_shape_is_one_cta_per_sequence():
+    """At B=512 T=72 D=512 H=8 all eight heads share a CTA: 512 CTAs of 256
+    threads, each streaming whole 512-byte rows."""
+    assert K.plan_decode_attention(72, 512, 8) == 8
+    assert K.plan_decode_attention(72, 1024, 8) == 4    # 128-byte heads: 512 bytes a CTA
+
+
+def test_head_group_plan_refuses_what_cannot_fit():
+    with pytest.raises(ValueError):
+        K.plan_decode_attention(60000, 1024, 8)

@@ -11,7 +11,8 @@ Against the JAX package's eager int8 chain, which also divides exactly,
 both are bit-equal.  K5's plain version agrees with its interpreted JAX
 kernel within that test's rtol 1e-6 / atol 1e-4 and is bit-equal to the
 eager JAX int8 chain.  The CUDA kernels themselves are held against these
-plain versions on the card by chip_smoke.py."""
+plain versions on the card by chip_smoke.py; K5's tile planner, which
+chooses the kernel's grid from the shape, is tested here."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -194,3 +195,42 @@ def test_k5_rejects_bad_inputs(bad):
     b = torch.zeros(97 if bad == "b_shape" else 96)
     with pytest.raises(ValueError):
         K.w8a8_matmul(xq, sx, wq, torch.ones(96), b)
+
+
+# K5's six shapes on the serving path ([M, K, N]): the decode step's three,
+# then the prefill's three
+K5_SERVING_SHAPES = [(512, 512, 512), (512, 512, 2048), (512, 2048, 512),
+                     (36864, 512, 512), (36864, 512, 2048), (36864, 2048, 512)]
+
+
+@pytest.mark.parametrize("m,k,n", K5_SERVING_SHAPES + [
+    (1000, 512, 96), (129, 304, 200), (1, 300, 96), (60, 128, 128), (37, 17, 5)])
+def test_k5_tile_plan_covers_every_output_once(m, k, n):
+    """The planner's grid (blockIdx.x over M, blockIdx.y over N, each CTA a
+    BM x BN tile masked at the edges) covers every output element exactly
+    once: at the serving shapes, at ragged M/K/N, M = 1 and lead dims (4, 15)
+    flattened to M = 60.  K does not enter the plan: every CTA walks all of
+    it.  The tiles form a grid, so each axis is checked on its own."""
+    tile, grid_m, grid_n = K.plan_w8a8_tile(m, n)
+    bm, bn = K.W8A8_TILES[tile]
+    assert (grid_m, grid_n) == (-(-m // bm), -(-n // bn))
+    for size, block, blocks in ((m, bm, grid_m), (n, bn, grid_n)):
+        cover = np.zeros(size, np.int32)
+        for i in range(blocks):
+            cover[i * block:min((i + 1) * block, size)] += 1
+        assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("m,k,n", K5_SERVING_SHAPES)
+def test_k5_tile_plan_fills_the_card(m, k, n):
+    """Every serving shape gets at least 128 CTAs for the H100's 132 SMs
+    (the planner aims at 256): 32x32 or 64x64 tiles at the decode step's 512
+    rows, 128x128 at the prefill's 36,864."""
+    tile, grid_m, grid_n = K.plan_w8a8_tile(m, n)
+    assert grid_m * grid_n >= max(128, K.W8A8_MIN_CTAS)
+    assert K.W8A8_TILES[tile] == ((128, 128) if m == 36864 else (32, 32) if n == 512
+                                  else (64, 64))
+
+
+def test_k5_tile_plan_small_products_take_the_smallest_tile():
+    assert K.plan_w8a8_tile(1, 96) == (len(K.W8A8_TILES) - 1, 1, 3)
