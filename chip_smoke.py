@@ -11,10 +11,15 @@ Phases, each printed on its own line with its seconds:
               library in ``onnx_transformer_tpu_torch/_build/``.
 3. kernels    every kernel on the card against its plain PyTorch version:
               K1 (quant_w8a8_matmul_qout) and K2 (quant_w8a8_matmul_q8) bit
-              for bit at the main-path shape, a ragged M and the JAX tests'
-              shape; K5 (w8a8_matmul) bit for bit at the decode-step shapes,
-              the encoder shape, M=1 with a ragged K, lead dims and ragged
-              M/K/N, through its wrapper and with each of its four tiles,
+              for bit at the main-path shape, a ragged M, the JAX tests'
+              shape, the K, N = 2048 corners where their planner changes
+              BM, M=1 with a ragged K, lead dims, ragged M/N, and each of
+              their configurations with vector and scalar loads, with the
+              count of tensor-core and dp4a instructions in their SASS
+              (tensor-core ones required, dp4a refused); K5 (w8a8_matmul)
+              bit for bit at the decode-step shapes, the encoder shape, M=1
+              with a ragged K, lead dims and ragged M/K/N, through its
+              wrapper and with each of its four tiles,
               timed at the serving path's six shapes (each tile too), with
               the count of tensor-core (IMMA/HGMMA) and dp4a (IDP)
               instructions in its SASS; K3 (decode_attention_int8) within
@@ -41,7 +46,8 @@ Phases, each printed on its own line with its seconds:
               in the decode; the same decode in "int8" mode must give the same
               encoder memory (atol 1e-4, rtol 1e-5) and >= 95 % of its tokens.
               One more decode runs under torch.profiler: the device's busy
-              share of the wall time, the kernel launches, the top kernels.
+              share of the wall time, the kernel launches, the top kernels,
+              and K1's and K2's device ms per decode summed by kernel name.
 5. serving path  the same model and sources through the KV-cached
               ``serving.decode.greedy_decode`` with the int8 cache,
               ``fused_attn=True`` and W8A8 in "pallas" mode (max_len 72):
@@ -97,11 +103,20 @@ CSRC = "onnx_transformer_tpu_torch/csrc/"
 # cross-q, cross-o; FFN 1; FFN 2), then the prefill's
 K5_TIME_SHAPES = [((512,), 512, 512), ((512,), 512, 2048), ((512,), 2048, 512),
                   ((36864,), 512, 512), ((36864,), 512, 2048), ((36864,), 2048, 512)]
+# K1/K2's checks: the main-path shape, a ragged M, the JAX tests' shape, the
+# MAX_KN corners where plan_w8a8_qrows changes BM, M = 1 with a ragged K,
+# lead dims, ragged M and N; then the configurations and load paths those
+# leave out (N = 1024; scalar loads with a ragged N at each BM), so that
+# every kernel instance runs
+K12_SHAPES = [((512, 72), 512, 512), ((1000,), 512, 512), ((48,), 64, 96),
+              ((64,), 2048, 512), ((64,), 512, 2048), ((32,), 2048, 2048),
+              ((1,), 300, 96), ((4, 15), 128, 128), ((129,), 304, 200),
+              ((64,), 512, 1024), ((96,), 512, 1000), ((40,), 2000, 200), ((17,), 300, 1800)]
 PALLAS = "onnx_transformer_tpu/ops/pallas/"
 # name, its source, the TPU kernel it replaces (file:line of the function)
 KERNELS = {
-    "qout": ("quant_w8a8_matmul_qout", CSRC + "w8a8_matmul.cu", PALLAS + "w8a8_matmul.py:244"),
-    "q8": ("quant_w8a8_matmul_q8", CSRC + "w8a8_matmul.cu", PALLAS + "w8a8_matmul.py:188"),
+    "qout": ("quant_w8a8_matmul_qout", CSRC + "w8a8_qrows.cu", PALLAS + "w8a8_matmul.py:244"),
+    "q8": ("quant_w8a8_matmul_q8", CSRC + "w8a8_qrows.cu", PALLAS + "w8a8_matmul.py:188"),
     "attn": ("decode_attention_int8", CSRC + "decode_attention.cu", PALLAS + "attention.py:104"),
     "w8a8": ("w8a8_matmul", CSRC + "w8a8_gemm.cu", PALLAS + "w8a8_matmul.py:73"),
     "qout4": ("quant_w4a8_matmul_qout", CSRC + "w8a8_matmul.cu", PALLAS + "w8a8_matmul.py:480"),
@@ -633,7 +648,11 @@ def run_main_path(device, base: dict, max_len: int, chunk: int, card: str = "") 
           f"{dt:.6f} s per decode, {dt / max_len * 1e3:.6f} ms per step, "
           f"{tokens / dt:.3f} tokens/s on {card}", flush=True)
     if device.type == "cuda":
-        profile_decode(lambda: decode(linf), sync, dt)
+        prof = profile_decode(lambda: decode(linf), sync, dt)
+        for label, kname in (("K1", "w8a8_qrows_qout_kernel"), ("K2", "w8a8_qrows_q8_kernel")):
+            ms, count = device_ms_of(prof, kname)
+            print(f"profile main {label} ({kname}): {ms:.3f} ms of device time in {count} "
+                  f"launches per decode", flush=True)
     return {"launches": launches, "seconds": dt, "agree": agree}
 
 
@@ -901,8 +920,12 @@ def main() -> int:
                         print("ptxas", line.strip().replace("ptxas info    : ", ""))
 
     with phase("kernels"):
-        rows = check_kernels(device, [((512, 72), 512, 512), ((1000,), 512, 512),
-                                      ((48,), 64, 96)], ((512, 72), 512, 512))
+        rows = check_kernels(device, K12_SHAPES, ((512, 72), 512, 512))
+        counts = sass_counts(build.build_info["path"], "w8a8_qrows")
+        print(f"kernels quant_w8a8_matmul_qout/q8 SASS instructions (cuobjdump): {counts}",
+              flush=True)
+        if counts is not None and (counts["IDP"] or not counts["IMMA"] + counts["HGMMA"]):
+            raise AssertionError(f"K1/K2 must run on the tensor cores, without dp4a: {counts}")
         rows.update(check_k5(device, [((512,), 512, 512), ((512,), 512, 2048),
                                       ((512,), 2048, 512), ((36864,), 512, 512),
                                       ((1,), 300, 96), ((4, 15), 128, 128),

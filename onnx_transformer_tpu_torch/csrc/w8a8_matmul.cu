@@ -1,34 +1,38 @@
-// Fused W8A8 and W4A8 quantize-matmul kernels for Hopper (sm_90a), with a
+// Fused W4A8 quantize-matmul kernels for Hopper (sm_90a) on __dp4a, with a
 // plain C interface for ctypes.
 //
 // Replaces the TPU kernels of onnx_transformer_tpu/ops/pallas/w8a8_matmul.py:
-//   K1 quant_w8a8_qout <- quant_w8a8_matmul_qout / _quant_w8a8_kernel_qout
-//   K2 quant_w8a8_q8   <- quant_w8a8_matmul_q8   / _quant_w8a8_kernel_q8
 //   K6 quant_w4a8_qout <- quant_w4a8_matmul_qout / _quant_w4a8_kernel_qout
 //   K7 quant_w4a8_q8   <- quant_w4a8_matmul_q8   / _quant_w4a8_kernel_q8
+//
+// It serves K6/K7 only.  K1/K2, the same contract over int8 weights, run on
+// the tensor cores in w8a8_qrows.cu; K6/K7 stay on this __dp4a kernel until
+// that kernel's W staging takes the packed-int4 format (the nibble unpack
+// below goes into its W transpose), so that each kernel change is measured
+// on its own.
 //
 // K6/K7 take the weights as packed int4: uint8 [K/2,N], byte r of a column
 // holding row 2r in its low nibble and row 2r+1 in its high one, both
 // sign-extended (quant/core.pack_int4).  They unpack while staging a W tile
-// into shared memory, into the same words of 4 int8 k that K1/K2 build, so
-// everything else is shared; no unpacked weight tensor exists in memory.
-// K is even, and a tile of kTK = 64 rows is 32 packed rows.
+// into shared memory, into words of 4 int8 k; no unpacked weight tensor
+// exists in memory.  K is even, and a tile of kTK = 64 rows is 32 packed
+// rows.
 //
-// Both compute, for x f32 [M,K], wq int8 [K,N], sw and b f32 [N]:
+// Both compute, for x f32 [M,K], the int4 weights wq [K,N], sw and b f32 [N]:
 //   sx  = max(absmax_k |x[m,k]|, 1e-5) / 127            (per token)
 //   xq  = round_half_even(x / sx)                        (int8)
 //   y   = float(xq @ wq) * (sx * sw[n]) + b[n]           (int32 accumulate)
 //   sy  = max(absmax_n |y[m,n]|, 1e-5) / 127             (per token)
-// K1 writes round(y / sy) * sy (f32 [M,N]); K2 writes round(y / sy) as int8
+// K6 writes round(y / sy) * sy (f32 [M,N]); K7 writes round(y / sy) as int8
 // [M,N] and sy as f32 [M].  Every step uses the _rn intrinsics and nothing is
 // contracted into an FMA, so the result is bit-equal to the plain PyTorch
 // version (ops/kernels/w8a8_matmul.py), whose eager ops neither contract nor
 // divide approximately.
 //
-// Bound on the H100 SXM (3.35 TB/s, 1979 int8 TOP/s) at the main-path shape
-// x [36864,512] x W [512,512]: memory.  K1 moves 151 MB (x read, f32 y
-// written): 45 us; K2 moves 95 MB (int8 y written): 28 us; the 19.3 GOP of
-// int8 products need 9.8 us at the tensor-core rate.
+// Bound on the H100 SXM (3.35 TB/s, 1979 int8 TOP/s) at the int4 path's
+// shape x [36864,512] x W [512,512]: memory.  K6 moves 151 MB (x read, f32
+// y written): 45 us; K7 moves 95 MB (int8 y written): 28 us; the 19.3 GOP
+// of int8 products need 9.8 us at the tensor-core rate.
 //
 // Design.  The output scale needs the whole output row, so one CTA owns BM
 // rows across all N columns: BM = 32 for N <= 1024, BM = 16 above, so that
@@ -44,7 +48,7 @@
 // pipes at a small fraction of the tensor cores' int8 rate, so the product
 // (not the 45 us of memory traffic) bounds it; every CTA re-reads W from L2;
 // x is read twice (absmax, then quantize), the second time from cache; no
-// copy overlaps compute.  wgmma with TMA-fed tiles is the later fix.
+// copy overlaps compute.  w8a8_qrows.cu's design is the fix.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,9 +70,9 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // The W tile load: 4 consecutive k (k0 + 4*kq + i, i = 0..3, k0 + 4*kq even)
-// of 4 columns, one int8 per byte of each column's word.  Rows past K and
-// columns past N are zero, which adds nothing to the products.
-template <bool kInt4>
+// of 4 columns, one int8 per byte of each column's word, unpacked from the
+// nibble pairs.  Rows past K and columns past N are zero, which adds
+// nothing to the products.
 __device__ __forceinline__ void load_w_words(const unsigned char* __restrict__ w, int k,
                                              int n0, int K, int N, unsigned int w4[4]) {
 #pragma unroll
@@ -76,27 +80,21 @@ __device__ __forceinline__ void load_w_words(const unsigned char* __restrict__ w
     const int n = n0 + c;
     unsigned int word = 0u;
     if (n < N) {
-      if (kInt4) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          if (k + 2 * j < K) {   // K even: rows k+2j and k+2j+1 share a byte
-            const unsigned int p = w[(size_t)((k >> 1) + j) * N + n];
-            const unsigned int lo = ((p & 0xFu) ^ 8u) - 8u;   // sign-extend
-            const unsigned int hi = ((p >> 4) ^ 8u) - 8u;
-            word |= ((lo & 0xFFu) | ((hi & 0xFFu) << 8)) << (16 * j);
-          }
+      for (int j = 0; j < 2; ++j) {
+        if (k + 2 * j < K) {   // K even: rows k+2j and k+2j+1 share a byte
+          const unsigned int p = w[(size_t)((k >> 1) + j) * N + n];
+          const unsigned int lo = ((p & 0xFu) ^ 8u) - 8u;   // sign-extend
+          const unsigned int hi = ((p >> 4) ^ 8u) - 8u;
+          word |= ((lo & 0xFFu) | ((hi & 0xFFu) << 8)) << (16 * j);
         }
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (k + i < K) word |= static_cast<unsigned int>(w[(size_t)(k + i) * N + n]) << (8 * i);
       }
     }
     w4[c] = word;
   }
 }
 
-template <int BM, bool kQ8, bool kInt4>
+template <int BM, bool kQ8>
 __global__ void __launch_bounds__(kThreads)
 quant_w8a8_kernel(const float* __restrict__ x, const unsigned char* __restrict__ wq,
                   const float* __restrict__ sw, const float* __restrict__ bias,
@@ -151,7 +149,7 @@ quant_w8a8_kernel(const float* __restrict__ x, const unsigned char* __restrict__
     for (int k0 = 0; k0 < Kp; k0 += kTK) {
       __syncthreads();  // Phase A done / previous tile consumed
       unsigned int w4[4];
-      load_w_words<kInt4>(wq, k0 + 4 * kq, n0 + 4 * nq, K, N, w4);
+      load_w_words(wq, k0 + 4 * kq, n0 + 4 * nq, K, N, w4);
 #pragma unroll
       for (int c = 0; c < 4; ++c) wt[(4 * nq + c) * kWStride + kq] = static_cast<int>(w4[c]);
       __syncthreads();
@@ -205,24 +203,24 @@ quant_w8a8_kernel(const float* __restrict__ x, const unsigned char* __restrict__
   }
 }
 
-template <int BM, bool kQ8, bool kInt4>
+template <int BM, bool kQ8>
 int launch(const float* x, const void* wq, const float* sw, const float* b,
            float* out, int8_t* outq, float* outs, int M, int K, int N,
            cudaStream_t stream) {
   const int Kp = (K + kTK - 1) / kTK * kTK;
   const size_t smem = (size_t)BM * N * sizeof(float) + (size_t)kTN * kWStride * sizeof(int) +
                       (size_t)BM * sizeof(float) + (size_t)BM * Kp;
-  cudaError_t err = cudaFuncSetAttribute(quant_w8a8_kernel<BM, kQ8, kInt4>,
+  cudaError_t err = cudaFuncSetAttribute(quant_w8a8_kernel<BM, kQ8>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (M + BM - 1) / BM;
-  quant_w8a8_kernel<BM, kQ8, kInt4><<<grid, kThreads, smem, stream>>>(
+  quant_w8a8_kernel<BM, kQ8><<<grid, kThreads, smem, stream>>>(
       x, static_cast<const unsigned char*>(wq), sw, b, out, outq, outs, M, K, N, Kp);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kQ8, bool kInt4>
+template <bool kQ8>
 int launch_rows(const void* x, const void* w, const void* sw, const void* b, void* out,
                 void* outq, void* outs, int M, int K, int N, void* stream) {
   auto xs = static_cast<const float*>(x);
@@ -232,37 +230,25 @@ int launch_rows(const void* x, const void* w, const void* sw, const void* b, voi
   auto oq = static_cast<int8_t*>(outq);
   auto ss = static_cast<float*>(outs);
   auto st = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || K <= 0 || N <= 0 || (kInt4 && K % 2)) return static_cast<int>(cudaErrorInvalidValue);
-  return N > 1024 ? launch<16, kQ8, kInt4>(xs, w, sws, bs, os, oq, ss, M, K, N, st)
-                  : launch<32, kQ8, kInt4>(xs, w, sws, bs, os, oq, ss, M, K, N, st);
+  if (M <= 0 || K <= 0 || N <= 0 || K % 2) return static_cast<int>(cudaErrorInvalidValue);
+  return N > 1024 ? launch<16, kQ8>(xs, w, sws, bs, os, oq, ss, M, K, N, st)
+                  : launch<32, kQ8>(xs, w, sws, bs, os, oq, ss, M, K, N, st);
 }
 
 }  // namespace
 
-// K1: out f32 [M,N].  Returns a cudaError_t (0 = launched).
-extern "C" int quant_w8a8_qout(const void* x, const void* wq, const void* sw,
-                               const void* b, void* out, int M, int K, int N,
-                               void* stream) {
-  return launch_rows<false, false>(x, wq, sw, b, out, nullptr, nullptr, M, K, N, stream);
-}
-
-// K2: outq int8 [M,N] and outs f32 [M].  Returns a cudaError_t (0 = launched).
-extern "C" int quant_w8a8_q8(const void* x, const void* wq, const void* sw,
-                             const void* b, void* outq, void* outs, int M, int K,
-                             int N, void* stream) {
-  return launch_rows<true, false>(x, wq, sw, b, nullptr, outq, outs, M, K, N, stream);
-}
-
-// K6: K1 over packed-int4 weights wp uint8 [K/2,N]; K even.
+// K6: out f32 [M,N] over packed-int4 weights wp uint8 [K/2,N]; K even.
+// Returns a cudaError_t (0 = launched).
 extern "C" int quant_w4a8_qout(const void* x, const void* wp, const void* sw,
                                const void* b, void* out, int M, int K, int N,
                                void* stream) {
-  return launch_rows<false, true>(x, wp, sw, b, out, nullptr, nullptr, M, K, N, stream);
+  return launch_rows<false>(x, wp, sw, b, out, nullptr, nullptr, M, K, N, stream);
 }
 
-// K7: K2 over packed-int4 weights wp uint8 [K/2,N]; K even.
+// K7: outq int8 [M,N] and outs f32 [M] over packed-int4 weights wp uint8
+// [K/2,N]; K even.  Returns a cudaError_t (0 = launched).
 extern "C" int quant_w4a8_q8(const void* x, const void* wp, const void* sw,
                              const void* b, void* outq, void* outs, int M, int K,
                              int N, void* stream) {
-  return launch_rows<true, true>(x, wp, sw, b, nullptr, outq, outs, M, K, N, stream);
+  return launch_rows<true>(x, wp, sw, b, nullptr, outq, outs, M, K, N, stream);
 }

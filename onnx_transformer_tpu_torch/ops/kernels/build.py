@@ -26,8 +26,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # C signatures of the entry points: "p" a pointer or the stream, "i" an int,
 # "f" a float.  Each returns the launch's cudaError_t.
 SIGNATURES = {
-    "quant_w8a8_qout": "pppppiiip",
-    "quant_w8a8_q8": "ppppppiiip",
+    "quant_w8a8_qout": "pppppiiiiip",
+    "quant_w8a8_q8": "ppppppiiiiip",
     "quant_w4a8_qout": "pppppiiip",
     "quant_w4a8_q8": "ppppppiiip",
     "quant_w8a8_gemm": "pppppiiip",

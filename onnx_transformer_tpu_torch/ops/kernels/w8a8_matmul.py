@@ -1,10 +1,12 @@
 """The W8A8 and W4A8 matmul kernels (ports of ``onnx_transformer_tpu/ops/pallas/w8a8_matmul.py``).
 
 - K1 ``quant_w8a8_matmul_qout`` and K2 ``quant_w8a8_matmul_q8``: fused
-  per-token quantize + int8 matmul + per-token output quantization
-  (``csrc/w8a8_matmul.cu``); K6 ``quant_w4a8_matmul_qout`` and K7
-  ``quant_w4a8_matmul_q8`` are the same over packed-int4 weights (uint8
-  [K/2, N] nibble pairs, ``quant.core.pack_int4``), in the same source.
+  per-token quantize + int8 matmul + per-token output quantization on the
+  tensor cores (``csrc/w8a8_qrows.cu``), each CTA holding whole output
+  rows, its configuration chosen from the shape by :func:`plan_w8a8_qrows`.
+- K6 ``quant_w4a8_matmul_qout`` and K7 ``quant_w4a8_matmul_q8``: the same
+  over packed-int4 weights (uint8 [K/2, N] nibble pairs,
+  ``quant.core.pack_int4``), on ``__dp4a`` (``csrc/w8a8_matmul.cu``).
 - K5 ``w8a8_matmul``: int8 matmul of pre-quantized activations with the
   ``acc * (sx * sw) + b`` epilogue on the tensor cores
   (``csrc/w8a8_gemm.cu``), its tile chosen from the shape by
@@ -48,6 +50,42 @@ def plan_w8a8_tile(m: int, n: int) -> tuple[int, int, int]:
         if grid[0] * grid[1] >= W8A8_MIN_CTAS:
             return (i, *grid)
     return (i, *grid)
+
+
+# K1/K2's configurations (``csrc/w8a8_qrows.cu``), by the index the kernel
+# takes: (BM, chunk columns, chunks, warps along M) of a 16-warp CTA that
+# holds BM whole output rows of N <= chunks x chunk columns, 64 int32 sums
+# a thread at most
+QROWS_TILES = ((64, 512, 1, 2), (32, 512, 1, 1), (32, 512, 2, 1), (16, 512, 4, 1))
+QROWS_WARPS = 16
+QROWS_STAGES = 3      # depth of the W tile ring
+MAX_SMEM = 232448     # the H100's dynamic shared memory per block (opt-in)
+
+
+def qrows_smem(tile: int, k: int) -> int:
+    """Dynamic shared memory of K1/K2's configuration ``tile`` at depth k,
+    as the kernel lays it out: a head (the row scales and the per-warp row
+    maxima, to 128 bytes), then the larger of the loop's buffers (the
+    resident int8 x rows [BM, K to 64, + 16], the ring of raw [64, chunk +
+    16] W tiles and the K-major [chunk, 80] W tile) and the f32 output
+    staging [BM, N capacity + 8]."""
+    bm, bn, ch, warps_m = QROWS_TILES[tile]
+    head = -(-(bm * 4 + bm * (QROWS_WARPS // warps_m) * 4) // 128) * 128
+    loop = bm * (-(-k // 64) * 64 + 16) + QROWS_STAGES * 64 * (bn + 16) + bn * 80
+    return head + max(loop, bm * (ch * bn + 8) * 4)
+
+
+def plan_w8a8_qrows(m: int, k: int, n: int) -> tuple[int, int, int]:
+    """K1/K2's configuration for an [m, k] x [k, n] product: the first of
+    ``QROWS_TILES`` that holds n columns in at most ``MAX_SMEM`` bytes.
+    Returns (tile index, shared-memory bytes, CTAs), the CTAs over M."""
+    if not (0 < k <= MAX_KN and 0 < n <= MAX_KN):
+        raise ValueError(f"K={k} and N={n} must be within 1..{MAX_KN}")
+    for i, (bm, bn, ch, _) in enumerate(QROWS_TILES):
+        smem = qrows_smem(i, k)
+        if n <= bn * ch and smem <= MAX_SMEM:
+            return i, smem, -(-m // bm)
+    raise AssertionError(f"no configuration holds K={k}, N={n}")
 
 
 def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -169,7 +207,7 @@ def _ptrs(**tensors) -> list[int]:
     return [t.data_ptr() for t in tensors.values()]
 
 
-def _qout(fn, entry: str, ref, x, wq, sw, b, packed: bool):
+def _qout(fn, entry: str, ref, x, wq, sw, b, packed: bool, plan=None):
     x2, n, b = _check(x, wq, sw, b, packed)
     lead = x.shape[:-1]
     if not x.is_cuda:
@@ -178,12 +216,13 @@ def _qout(fn, entry: str, ref, x, wq, sw, b, packed: bool):
     m, k = x2.shape
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m:
-        launch(entry, x.device, *_ptrs(x=x2, wq=wq, sw=sw, b=b), out.data_ptr(), m, k, n)
+        launch(entry, x.device, *_ptrs(x=x2, wq=wq, sw=sw, b=b), out.data_ptr(), m, k, n,
+               *(plan(m, k, n)[:2] if plan else ()))
         fn.launches += 1
     return out.reshape(*lead, n)
 
 
-def _q8(fn, entry: str, ref, x, wq, sw, b, packed: bool):
+def _q8(fn, entry: str, ref, x, wq, sw, b, packed: bool, plan=None):
     x2, n, b = _check(x, wq, sw, b, packed)
     lead = x.shape[:-1]
     if not x.is_cuda:
@@ -195,7 +234,7 @@ def _q8(fn, entry: str, ref, x, wq, sw, b, packed: bool):
     s = torch.empty((m, 1), dtype=torch.float32, device=x.device)
     if m:
         launch(entry, x.device, *_ptrs(x=x2, wq=wq, sw=sw, b=b), q.data_ptr(), s.data_ptr(),
-               m, k, n)
+               m, k, n, *(plan(m, k, n)[:2] if plan else ()))
         fn.launches += 1
     return q.reshape(*lead, n), s.reshape(*lead, 1)
 
@@ -219,7 +258,7 @@ def quant_w8a8_matmul_qout(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     """K1: x f32 [..., K] -> f32 [..., N] = per-token fake-quant of
     ``float(quantize(x) @ wq) * (sx * sw) + b``; K, N <= 2048."""
     return _qout(quant_w8a8_matmul_qout, "quant_w8a8_qout", quant_w8a8_matmul_qout_ref,
-                 x, wq, sw, b, packed=False)
+                 x, wq, sw, b, packed=False, plan=plan_w8a8_qrows)
 
 
 def quant_w8a8_matmul_q8(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
@@ -227,7 +266,7 @@ def quant_w8a8_matmul_q8(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     """K2: x f32 [..., K] -> (int8 [..., N], f32 [..., 1]): the output rows
     quantized per token, and their scales; K, N <= 2048."""
     return _q8(quant_w8a8_matmul_q8, "quant_w8a8_q8", quant_w8a8_matmul_q8_ref,
-               x, wq, sw, b, packed=False)
+               x, wq, sw, b, packed=False, plan=plan_w8a8_qrows)
 
 
 def quant_w4a8_matmul_qout(x: torch.Tensor, wp: torch.Tensor, sw: torch.Tensor,

@@ -40,7 +40,10 @@ def rehearsal(monkeypatch):
 
 
 def test_kernel_checks(rehearsal):
-    rows = C.check_kernels(CPU, [((4, 7), 64, 96)], ((4, 7), 64, 96))
+    # K1/K2 at the card check's shapes, all but the main path's 36,864 rows
+    k12 = [s for s in C.K12_SHAPES if np.prod(s[0]) <= 1000]
+    assert len(k12) == len(C.K12_SHAPES) - 1
+    rows = C.check_kernels(CPU, [((4, 7), 64, 96)] + k12, ((4, 7), 64, 96))
     k5_times = [((16,), 64, 64), ((16,), 64, 256), ((16,), 256, 64), ((40,), 64, 64)]
     rows.update(C.check_k5(CPU, [((5,), 64, 96), ((1,), 300, 96), ((4, 15), 128, 128)],
                            k5_times))
@@ -105,6 +108,21 @@ def test_bounds():
     assert by == "operations" and np.isclose(ms, 1.0)
 
 
+def test_k12_shapes_reach_every_kernel_instance():
+    """The card check's K1/K2 shapes run every configuration of
+    plan_w8a8_qrows, each with 16-byte loads (K % 4 == 0, N % 16 == 0) and
+    with scalar ones, and include the shapes the port's main path and its
+    edges need."""
+    reached = set()
+    for lead, k, n in C.K12_SHAPES:
+        tile = KM.plan_w8a8_qrows(int(np.prod(lead)), k, n)[0]
+        reached.add((tile, k % 4 == 0 and n % 16 == 0))
+    assert reached == {(t, v) for t in range(len(KM.QROWS_TILES)) for v in (True, False)}
+    for shape in [((512, 72), 512, 512), ((64,), 2048, 512), ((64,), 512, 2048),
+                  ((32,), 2048, 2048), ((1,), 300, 96), ((4, 15), 128, 128), ((129,), 304, 200)]:
+        assert shape in C.K12_SHAPES
+
+
 def test_count_sass():
     """The tensor-core and dp4a instructions of one kernel's functions in
     cuobjdump's SASS listing; other functions are not counted."""
@@ -117,9 +135,15 @@ def test_count_sass():
         /*0100*/                   IDP.4A.S8.S8 R4, R5, R6, R4 ;
         Function : _ZN12_GLOBAL__N_116w8a8_gemm_kernelINS_4TileILi32EEELb0EEEvPKa
         /*0200*/                   IMMA.16832.S8.S8 R24, R8.ROW, R20.COL, R24 ;
+        Function : _ZN12_GLOBAL__N_122w8a8_qrows_qout_kernelINS_5QRowsILi64EEELb1EEEvPKf
+        /*0100*/                   IMMA.16832.S8.S8 R24, R8.ROW, R20.COL, R24 ;
+        Function : _ZN12_GLOBAL__N_120w8a8_qrows_q8_kernelINS_5QRowsILi64EEELb1EEEvPKf
+        /*0100*/                   IMMA.16832.S8.S8 R24, R8.ROW, R20.COL, R24 ;
     """
     assert C.count_sass(sass, "w8a8_gemm_kernel") == {"IMMA": 3, "HGMMA": 0, "IDP": 0}
     assert C.count_sass(sass, "quant_w8a8_kernel") == {"IMMA": 0, "HGMMA": 0, "IDP": 1}
+    # K1 and K2 are counted together under their shared prefix
+    assert C.count_sass(sass, "w8a8_qrows") == {"IMMA": 2, "HGMMA": 0, "IDP": 0}
 
 
 def test_device_ms_of():
@@ -131,4 +155,12 @@ def test_device_ms_of():
         "void (anonymous namespace)::decode_attn_kernel<true>(...)": (1.5, 12)}}
     assert C.device_ms_of(prof, "w8a8_gemm_kernel") == (5.5, 34)
     assert C.device_ms_of(prof, "decode_attn_kernel") == (1.5, 12)
+    # K1 and K2 apart, as the main path reports them
+    prof["by_kernel"].update({
+        "void (anonymous namespace)::w8a8_qrows_qout_kernel<QRows<64, 512, 1, 2>, true>(...)":
+            (0.2, 18),
+        "void (anonymous namespace)::w8a8_qrows_q8_kernel<QRows<64, 512, 1, 2>, true>(...)":
+            (0.1, 12)})
+    assert C.device_ms_of(prof, "w8a8_qrows_qout_kernel") == (0.2, 18)
+    assert C.device_ms_of(prof, "w8a8_qrows_q8_kernel") == (0.1, 12)
     assert C.device_ms_of(None, "decode_attn_kernel") == (0, 0)

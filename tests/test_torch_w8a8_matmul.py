@@ -234,3 +234,124 @@ def test_k5_tile_plan_fills_the_card(m, k, n):
 
 def test_k5_tile_plan_small_products_take_the_smallest_tile():
     assert K.plan_w8a8_tile(1, 96) == (len(K.W8A8_TILES) - 1, 1, 3)
+
+
+# K1/K2's configuration planner (csrc/w8a8_qrows.cu): K and N on a grid up
+# to MAX_KN = 2048, ragged values among them
+QROWS_K = [16, 64, 300, 304, 512, 1024, 1344, 1345, 1408, 2000, 2048]
+QROWS_N = [8, 96, 200, 512, 513, 1000, 1024, 1025, 1536, 2048]
+
+
+def _qrows_tile(tile):
+    """(BM, chunk, chunks, warps along M, warps along N, warp rows, warp
+    columns) of a configuration."""
+    bm, bn, ch, warps_m = K.QROWS_TILES[tile]
+    warps_n = K.QROWS_WARPS // warps_m
+    return bm, bn, ch, warps_m, warps_n, bm // warps_m, bn // warps_n
+
+
+@pytest.mark.parametrize("k", QROWS_K)
+@pytest.mark.parametrize("n", QROWS_N)
+def test_qrows_plan_covers_every_output_once(k, n):
+    """The kernel's map from (CTA, warp, mma fragment) to output elements
+    covers every row of M and every column of N exactly once, at M = 1, a
+    ragged M and the main path's 36,864 rows.  A CTA holds BM rows of all N
+    columns; its warps split BM into warps_m blocks of 16-row mma tiles and
+    each 512-column chunk into warps_n blocks of n8 tiles; a lane holds rows
+    g and g + 8 and columns 2t and 2t + 1 of each 16x8 tile."""
+    for m in (1, 129, 36864):
+        tile, smem, ctas = K.plan_w8a8_qrows(m, k, n)
+        bm, bn, ch, warps_m, warps_n, wm, wn = _qrows_tile(tile)
+        assert ctas == -(-m // bm)
+        rows = np.zeros(ctas * bm, np.int32)
+        for cta in range(ctas):
+            for w in range(warps_m):
+                for mi in range(wm // 16):
+                    for g in range(8):
+                        for h in range(2):
+                            rows[cta * bm + w * wm + mi * 16 + g + h * 8] += 1
+        assert (rows == 1).all() and len(rows) >= m
+        cols = np.zeros(ch * bn, np.int32)
+        for c in range(ch):
+            for w in range(warps_n):
+                for ni in range(wn // 8):
+                    for t in range(4):
+                        cols[c * bn + w * wn + ni * 8 + 2 * t] += 1
+                        cols[c * bn + w * wn + ni * 8 + 2 * t + 1] += 1
+        assert (cols == 1).all() and len(cols) >= n
+
+
+@pytest.mark.parametrize("n", QROWS_N)
+def test_qrows_plan_shared_memory_fits(n):
+    """At every K up to 2048 the planned shared memory fits the H100's
+    232,448 bytes per block, is the configuration's own, is a multiple of
+    16 bytes, and holds the resident int8 x rows and the W ring, and (in
+    the same bytes, after the loop) the f32 output staging."""
+    for k in range(1, K.MAX_KN + 1):
+        tile, smem, _ = K.plan_w8a8_qrows(7, k, n)
+        bm, bn, ch, *_ = K.QROWS_TILES[tile]
+        assert smem == K.qrows_smem(tile, k) <= K.MAX_SMEM
+        assert smem % 16 == 0
+        assert n <= bn * ch
+        assert smem >= max(bm * k + K.QROWS_STAGES * 64 * bn, bm * n * 4)
+
+
+def test_qrows_tiles_register_budget_and_bm():
+    """Every configuration: BM a multiple of 16, 16 warps, and at most 64
+    int32 sums a thread (BM x N capacity <= 32,768)."""
+    for tile, (bm, bn, ch, warps_m) in enumerate(K.QROWS_TILES):
+        assert bm % 16 == 0 and K.QROWS_WARPS % warps_m == 0
+        _, _, _, _, _, wm, wn = _qrows_tile(tile)
+        assert wm % 16 == 0 and wn % 16 == 0
+        assert bm * bn * ch <= 32768
+
+
+def test_qrows_plan_main_shape():
+    """At the main path's [36864,512] x [512,512]: BM = 64 rows of 512
+    columns, 64 sums a thread, 576 CTAs of 178,432 bytes (one per SM)."""
+    tile, smem, ctas = K.plan_w8a8_qrows(36864, 512, 512)
+    bm, bn, ch, _ = K.QROWS_TILES[tile]
+    assert (bm, bn * ch, ctas, smem) == (64, 512, 576, 178432)
+    assert bm * 512 // (K.QROWS_WARPS * 32) == 64
+    assert 2 * smem > K.MAX_SMEM
+
+
+@pytest.mark.parametrize("m,k,n,bm", [(64, 2048, 512, 32), (64, 512, 2048, 16),
+                                      (32, 2048, 2048, 16), (64, 1344, 512, 64),
+                                      (64, 1345, 512, 32), (64, 512, 1024, 32)])
+def test_qrows_plan_corners(m, k, n, bm):
+    """The MAX_KN corners, where the planner lowers BM to keep the int8 x
+    rows or the sums within the card."""
+    tile, _, ctas = K.plan_w8a8_qrows(m, k, n)
+    assert K.QROWS_TILES[tile][0] == bm and ctas == -(-m // bm)
+
+
+@pytest.mark.parametrize("k,n", [(0, 8), (8, 0), (2049, 8), (8, 2049)])
+def test_qrows_plan_rejects_out_of_range(k, n):
+    with pytest.raises(ValueError):
+        K.plan_w8a8_qrows(4, k, n)
+
+
+@pytest.mark.parametrize("lead,k,n", [((1,), 300, 96), ((4, 15), 128, 128),
+                                      ((129,), 304, 200), ((64,), 2048, 512),
+                                      ((64,), 512, 2048), ((32,), 2048, 2048)])
+def test_qrows_new_shapes_cpu_dispatch(lead, k, n):
+    """The card check's new K1/K2 shapes through the wrappers on the CPU:
+    the plain versions, unchanged, and nothing counted."""
+    rng = np.random.default_rng(k + n)
+    x = rng.normal(size=(*lead, k)).astype(np.float32)
+    wq = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    sw = rng.uniform(0.001, 0.01, (n,)).astype(np.float32)
+    bias = (rng.normal(size=(n,)) * 0.1).astype(np.float32)
+    xt, wt, swt, bt = _t(x, wq, sw, bias)
+    before = (K.quant_w8a8_matmul_qout.launches, K.quant_w8a8_matmul_q8.launches)
+    y = K.quant_w8a8_matmul_qout(xt, wt, swt, bt)
+    q, s = K.quant_w8a8_matmul_q8(xt, wt, swt, bt)
+    assert y.shape == (*lead, n) and q.shape == (*lead, n) and s.shape == (*lead, 1)
+    x2 = xt.reshape(-1, k)
+    assert torch.equal(y.reshape(-1, n), K.quant_w8a8_matmul_qout_ref(x2, wt, swt, bt))
+    q_ref, s_ref = K.quant_w8a8_matmul_q8_ref(x2, wt, swt, bt)
+    assert torch.equal(q.reshape(-1, n), q_ref) and torch.equal(s.reshape(-1, 1), s_ref)
+    # the f32 output lies on the int8 grid of its row scale
+    assert torch.equal(y.reshape(-1, n), q_ref.float() * s_ref)
+    assert (K.quant_w8a8_matmul_qout.launches, K.quant_w8a8_matmul_q8.launches) == before
