@@ -28,8 +28,10 @@ Phases, each printed on its own line with its seconds:
               and off, and at B=3, T=1, T=1024, a head width not divisible
               by 4, 128-byte heads (two CTAs per sequence) and 16-byte heads;
               K6 (quant_w4a8_matmul_qout) and K7 (quant_w4a8_matmul_q8) bit
-              for bit at the int4 path's shape, a ragged M, the JAX test's
-              shape, K=2048 and N=2048; K4 (quant_w8a8_matmul) and K8
+              for bit at K1/K2's 13 shapes (every K there is even), which run
+              all 12 of their kernel instances (3 configurations x vector
+              and scalar loads x K6/K7), and at K % 4 == 2, with the same
+              SASS gate on their own source; K4 (quant_w8a8_matmul) and K8
               (quant_w4a8_matmul) bit for bit at the encoder FFN shape, the
               decode-step shape, M=1 with a ragged K, lead dims, and (K4) the
               K-tiled contract at K=16384 and K=9728.  CUDA-event times of
@@ -66,7 +68,8 @@ Phases, each printed on its own line with its seconds:
               launch 18 times and K7 12 times per decode, no other matmul
               kernel; held against the same decode with the non-fused W4A8
               impl: encoder memory within atol 1e-4 / rtol 1e-5, >= 95 % of
-              the tokens.  Timed, then profiled as above.
+              the tokens.  Timed, then profiled as above, with K6's and K7's
+              device ms per decode summed by kernel name.
 7. reference  a small model decoded on the card and on the CPU from the same
               weights, by the chunk-staged decode ("fused" mode), by the
               KV-cached decode (int8 cache, K3, "pallas" mode), and by both
@@ -112,6 +115,10 @@ K12_SHAPES = [((512, 72), 512, 512), ((1000,), 512, 512), ((48,), 64, 96),
               ((64,), 2048, 512), ((64,), 512, 2048), ((32,), 2048, 2048),
               ((1,), 300, 96), ((4, 15), 128, 128), ((129,), 304, 200),
               ((64,), 512, 1024), ((96,), 512, 1000), ((40,), 2000, 200), ((17,), 300, 1800)]
+# K6/K7's: every K above is even, so the same list, which runs each of their
+# instances too; and K % 4 == 2, where the last k quad's odd packed row is
+# past K/2
+K67_SHAPES = K12_SHAPES + [((37,), 130, 96)]
 PALLAS = "onnx_transformer_tpu/ops/pallas/"
 # name, its source, the TPU kernel it replaces (file:line of the function)
 KERNELS = {
@@ -119,8 +126,8 @@ KERNELS = {
     "q8": ("quant_w8a8_matmul_q8", CSRC + "w8a8_qrows.cu", PALLAS + "w8a8_matmul.py:188"),
     "attn": ("decode_attention_int8", CSRC + "decode_attention.cu", PALLAS + "attention.py:104"),
     "w8a8": ("w8a8_matmul", CSRC + "w8a8_gemm.cu", PALLAS + "w8a8_matmul.py:73"),
-    "qout4": ("quant_w4a8_matmul_qout", CSRC + "w8a8_matmul.cu", PALLAS + "w8a8_matmul.py:480"),
-    "q84": ("quant_w4a8_matmul_q8", CSRC + "w8a8_matmul.cu", PALLAS + "w8a8_matmul.py:552"),
+    "qout4": ("quant_w4a8_matmul_qout", CSRC + "w4a8_qrows.cu", PALLAS + "w8a8_matmul.py:480"),
+    "q84": ("quant_w4a8_matmul_q8", CSRC + "w4a8_qrows.cu", PALLAS + "w8a8_matmul.py:552"),
     "qgemm": ("quant_w8a8_matmul", CSRC + "quant_gemm.cu", PALLAS + "w8a8_matmul.py:339"),
     "qgemm4": ("quant_w4a8_matmul", CSRC + "quant_gemm.cu", PALLAS + "w8a8_matmul.py:604"),
 }
@@ -828,7 +835,11 @@ def run_int4_path(device, base: dict, max_len: int, chunk: int, card: str = "") 
           f"{dt:.6f} s per decode, {dt / max_len * 1e3:.6f} ms per step, "
           f"{tokens / dt:.3f} tokens/s on {card}", flush=True)
     if device.type == "cuda":
-        profile_decode(lambda: decode(lin4), sync, dt)
+        prof = profile_decode(lambda: decode(lin4), sync, dt)
+        for label, kname in (("K6", "w4a8_qrows_qout_kernel"), ("K7", "w4a8_qrows_q8_kernel")):
+            ms, count = device_ms_of(prof, kname)
+            print(f"profile int4 {label} ({kname}): {ms:.3f} ms of device time in {count} "
+                  f"launches per decode", flush=True)
     return {"launches": launches, "seconds": dt, "agree": agree}
 
 
@@ -921,11 +932,14 @@ def main() -> int:
 
     with phase("kernels"):
         rows = check_kernels(device, K12_SHAPES, ((512, 72), 512, 512))
-        counts = sass_counts(build.build_info["path"], "w8a8_qrows")
-        print(f"kernels quant_w8a8_matmul_qout/q8 SASS instructions (cuobjdump): {counts}",
-              flush=True)
-        if counts is not None and (counts["IDP"] or not counts["IMMA"] + counts["HGMMA"]):
-            raise AssertionError(f"K1/K2 must run on the tensor cores, without dp4a: {counts}")
+        rows.update(check_kernels(device, K67_SHAPES, ((512, 72), 512, 512), packed=True))
+        for label, prefix in (("K1/K2", "w8a8_qrows"), ("K6/K7", "w4a8_qrows")):
+            counts = sass_counts(build.build_info["path"], prefix)
+            print(f"kernels {label} ({prefix}) SASS instructions (cuobjdump): {counts}",
+                  flush=True)
+            if counts is not None and (counts["IDP"] or not counts["IMMA"] + counts["HGMMA"]):
+                raise AssertionError(f"{label} must run on the tensor cores, without dp4a: "
+                                     f"{counts}")
         rows.update(check_k5(device, [((512,), 512, 512), ((512,), 512, 2048),
                                       ((512,), 2048, 512), ((36864,), 512, 512),
                                       ((1,), 300, 96), ((4, 15), 128, 128),
@@ -935,10 +949,6 @@ def main() -> int:
         rows.update(check_k3(device, [(512, 72, 512, 8), (3, 72, 512, 8), (3, 1, 512, 8),
                                       (4, 1024, 512, 8), (2, 9, 18, 3), (3, 72, 1024, 8),
                                       (5, 33, 256, 16)], (512, 72, 512, 8)))
-        rows.update(check_kernels(device, [((512, 72), 512, 512), ((1000,), 512, 512),
-                                           ((24,), 64, 96), ((64,), 2048, 512),
-                                           ((64,), 512, 2048)], ((512, 72), 512, 512),
-                                  packed=True))
         common = [((36864,), 512, 2048), ((512,), 512, 512), ((1,), 300, 96),
                   ((4, 15), 128, 128)]
         rows.update(check_quant_gemm(

@@ -28,8 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SIGNATURES = {
     "quant_w8a8_qout": "pppppiiiiip",
     "quant_w8a8_q8": "ppppppiiiiip",
-    "quant_w4a8_qout": "pppppiiip",
-    "quant_w4a8_q8": "ppppppiiip",
+    "quant_w4a8_qout": "pppppiiiiip",
+    "quant_w4a8_q8": "ppppppiiiiip",
     "quant_w8a8_gemm": "pppppiiip",
     "quant_w4a8_gemm": "pppppiiip",
     "w8a8_gemm": "ppppppiiiip",

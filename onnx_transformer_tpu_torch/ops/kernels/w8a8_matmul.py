@@ -5,8 +5,9 @@
   tensor cores (``csrc/w8a8_qrows.cu``), each CTA holding whole output
   rows, its configuration chosen from the shape by :func:`plan_w8a8_qrows`.
 - K6 ``quant_w4a8_matmul_qout`` and K7 ``quant_w4a8_matmul_q8``: the same
-  over packed-int4 weights (uint8 [K/2, N] nibble pairs,
-  ``quant.core.pack_int4``), on ``__dp4a`` (``csrc/w8a8_matmul.cu``).
+  kernel body over packed-int4 weights (uint8 [K/2, N] nibble pairs,
+  ``quant.core.pack_int4``), unpacked in shared memory as each W tile is
+  transposed (``csrc/w4a8_qrows.cu``; the body is ``csrc/qrows.cuh``).
 - K5 ``w8a8_matmul``: int8 matmul of pre-quantized activations with the
   ``acc * (sx * sw) + b`` epilogue on the tensor cores
   (``csrc/w8a8_gemm.cu``), its tile chosen from the shape by
@@ -52,37 +53,42 @@ def plan_w8a8_tile(m: int, n: int) -> tuple[int, int, int]:
     return (i, *grid)
 
 
-# K1/K2's configurations (``csrc/w8a8_qrows.cu``), by the index the kernel
-# takes: (BM, chunk columns, chunks, warps along M) of a 16-warp CTA that
-# holds BM whole output rows of N <= chunks x chunk columns, 64 int32 sums
-# a thread at most
+# K1/K2's and K6/K7's configurations (``csrc/qrows.cuh``), by the index the
+# kernel takes: (BM, chunk columns, chunks, warps along M) of a 16-warp CTA
+# that holds BM whole output rows of N <= chunks x chunk columns, 64 int32
+# sums a thread at most
 QROWS_TILES = ((64, 512, 1, 2), (32, 512, 1, 1), (32, 512, 2, 1), (16, 512, 4, 1))
 QROWS_WARPS = 16
 QROWS_STAGES = 3      # depth of the W tile ring
 MAX_SMEM = 232448     # the H100's dynamic shared memory per block (opt-in)
 
 
-def qrows_smem(tile: int, k: int) -> int:
-    """Dynamic shared memory of K1/K2's configuration ``tile`` at depth k,
-    as the kernel lays it out: a head (the row scales and the per-warp row
-    maxima, to 128 bytes), then the larger of the loop's buffers (the
-    resident int8 x rows [BM, K to 64, + 16], the ring of raw [64, chunk +
-    16] W tiles and the K-major [chunk, 80] W tile) and the f32 output
-    staging [BM, N capacity + 8]."""
+def qrows_smem(tile: int, k: int, packed: bool = False) -> int:
+    """Dynamic shared memory of K1/K2's configuration ``tile`` at depth k
+    (with ``packed``, K6/K7's), as the kernel lays it out: a head (the row
+    scales and the per-warp row maxima, to 128 bytes), then the larger of
+    the loop's buffers (the resident int8 x rows [BM, K to 64, + 16], the
+    ring of raw W tiles, [64, chunk + 16] int8 or [32, chunk + 16] packed,
+    and the K-major [chunk, 80] W tile) and the f32 output staging [BM, N
+    capacity + 8]."""
     bm, bn, ch, warps_m = QROWS_TILES[tile]
     head = -(-(bm * 4 + bm * (QROWS_WARPS // warps_m) * 4) // 128) * 128
-    loop = bm * (-(-k // 64) * 64 + 16) + QROWS_STAGES * 64 * (bn + 16) + bn * 80
+    raw_rows = 32 if packed else 64
+    loop = bm * (-(-k // 64) * 64 + 16) + QROWS_STAGES * raw_rows * (bn + 16) + bn * 80
     return head + max(loop, bm * (ch * bn + 8) * 4)
 
 
-def plan_w8a8_qrows(m: int, k: int, n: int) -> tuple[int, int, int]:
-    """K1/K2's configuration for an [m, k] x [k, n] product: the first of
+def plan_w8a8_qrows(m: int, k: int, n: int, packed: bool = False) -> tuple[int, int, int]:
+    """K1/K2's configuration for an [m, k] x [k, n] product (with
+    ``packed``, K6/K7's over packed-int4 weights, K even): the first of
     ``QROWS_TILES`` that holds n columns in at most ``MAX_SMEM`` bytes.
     Returns (tile index, shared-memory bytes, CTAs), the CTAs over M."""
     if not (0 < k <= MAX_KN and 0 < n <= MAX_KN):
         raise ValueError(f"K={k} and N={n} must be within 1..{MAX_KN}")
+    if packed and k % 2:
+        raise ValueError(f"K={k} must be even for packed-int4 weights")
     for i, (bm, bn, ch, _) in enumerate(QROWS_TILES):
-        smem = qrows_smem(i, k)
+        smem = qrows_smem(i, k, packed)
         if n <= bn * ch and smem <= MAX_SMEM:
             return i, smem, -(-m // bm)
     raise AssertionError(f"no configuration holds K={k}, N={n}")
@@ -207,7 +213,7 @@ def _ptrs(**tensors) -> list[int]:
     return [t.data_ptr() for t in tensors.values()]
 
 
-def _qout(fn, entry: str, ref, x, wq, sw, b, packed: bool, plan=None):
+def _qout(fn, entry: str, ref, x, wq, sw, b, packed: bool):
     x2, n, b = _check(x, wq, sw, b, packed)
     lead = x.shape[:-1]
     if not x.is_cuda:
@@ -217,12 +223,12 @@ def _qout(fn, entry: str, ref, x, wq, sw, b, packed: bool, plan=None):
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m:
         launch(entry, x.device, *_ptrs(x=x2, wq=wq, sw=sw, b=b), out.data_ptr(), m, k, n,
-               *(plan(m, k, n)[:2] if plan else ()))
+               *plan_w8a8_qrows(m, k, n, packed)[:2])
         fn.launches += 1
     return out.reshape(*lead, n)
 
 
-def _q8(fn, entry: str, ref, x, wq, sw, b, packed: bool, plan=None):
+def _q8(fn, entry: str, ref, x, wq, sw, b, packed: bool):
     x2, n, b = _check(x, wq, sw, b, packed)
     lead = x.shape[:-1]
     if not x.is_cuda:
@@ -234,7 +240,7 @@ def _q8(fn, entry: str, ref, x, wq, sw, b, packed: bool, plan=None):
     s = torch.empty((m, 1), dtype=torch.float32, device=x.device)
     if m:
         launch(entry, x.device, *_ptrs(x=x2, wq=wq, sw=sw, b=b), q.data_ptr(), s.data_ptr(),
-               m, k, n, *(plan(m, k, n)[:2] if plan else ()))
+               m, k, n, *plan_w8a8_qrows(m, k, n, packed)[:2])
         fn.launches += 1
     return q.reshape(*lead, n), s.reshape(*lead, 1)
 
@@ -258,7 +264,7 @@ def quant_w8a8_matmul_qout(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     """K1: x f32 [..., K] -> f32 [..., N] = per-token fake-quant of
     ``float(quantize(x) @ wq) * (sx * sw) + b``; K, N <= 2048."""
     return _qout(quant_w8a8_matmul_qout, "quant_w8a8_qout", quant_w8a8_matmul_qout_ref,
-                 x, wq, sw, b, packed=False, plan=plan_w8a8_qrows)
+                 x, wq, sw, b, packed=False)
 
 
 def quant_w8a8_matmul_q8(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
@@ -266,7 +272,7 @@ def quant_w8a8_matmul_q8(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     """K2: x f32 [..., K] -> (int8 [..., N], f32 [..., 1]): the output rows
     quantized per token, and their scales; K, N <= 2048."""
     return _q8(quant_w8a8_matmul_q8, "quant_w8a8_q8", quant_w8a8_matmul_q8_ref,
-               x, wq, sw, b, packed=False, plan=plan_w8a8_qrows)
+               x, wq, sw, b, packed=False)
 
 
 def quant_w4a8_matmul_qout(x: torch.Tensor, wp: torch.Tensor, sw: torch.Tensor,

@@ -56,8 +56,10 @@ def test_kernel_checks(rehearsal):
         assert s["bound_ms"] > 0
     assert rows["w8a8"]["bound_ms"] == shapes[0]["bound_ms"]
     rows.update(C.check_k3(CPU, [(6, 9, 64, 4), (3, 1, 64, 4), (2, 9, 18, 3)], (6, 9, 64, 4)))
-    rows.update(C.check_kernels(CPU, [((4, 7), 64, 96), ((3,), 128, 32)], ((4, 7), 64, 96),
-                                packed=True))
+    # K6/K7 at theirs, all but the 36,864-row one
+    k67 = [s for s in C.K67_SHAPES if np.prod(s[0]) <= 1000]
+    assert len(k67) == len(C.K67_SHAPES) - 1
+    rows.update(C.check_kernels(CPU, [((4, 7), 64, 96)] + k67, ((4, 7), 64, 96), packed=True))
     common = [((5,), 64, 96), ((1,), 300, 96), ((4, 15), 128, 128)]
     rows.update(C.check_quant_gemm(CPU, {"qgemm": common + [((3,), 9728, 8)],
                                          "qgemm4": common}, ((16,), 64, 64)))
@@ -121,6 +123,17 @@ def test_k12_shapes_reach_every_kernel_instance():
     for shape in [((512, 72), 512, 512), ((64,), 2048, 512), ((64,), 512, 2048),
                   ((32,), 2048, 2048), ((1,), 300, 96), ((4, 15), 128, 128), ((129,), 304, 200)]:
         assert shape in C.K12_SHAPES
+    # K6/K7's (even K only): every configuration their planner can give (it
+    # never gives tile 1 for packed weights, which w4a8_qrows.cu does not
+    # build) with both loads, and a K % 4 == 2
+    reached = set()
+    for lead, k, n in C.K67_SHAPES:
+        assert k % 2 == 0
+        tile = KM.plan_w8a8_qrows(int(np.prod(lead)), k, n, packed=True)[0]
+        reached.add((tile, k % 4 == 0 and n % 16 == 0))
+    assert reached == {(t, v) for t in (0, 2, 3) for v in (True, False)}
+    assert set(C.K12_SHAPES) < set(C.K67_SHAPES)
+    assert any(k % 4 == 2 for _, k, _ in C.K67_SHAPES)
 
 
 def test_count_sass():
@@ -131,7 +144,7 @@ def test_count_sass():
         /*0100*/                   LDSM.16.M88.4 R8, [R2] ;
         /*0110*/                   IMMA.16832.S8.S8 R24, R8.ROW, R20.COL, R24 ;
         /*0120*/                   IMMA.16832.S8.S8 R28, R8.ROW, R22.COL, R28 ;
-        Function : _ZN12_GLOBAL__N_116quant_w8a8_kernelILi32EEEvPKf
+        Function : _ZN12_GLOBAL__N_117quant_gemm_kernelILb1EEEvPKfPKhS2_S2_Pfiii
         /*0100*/                   IDP.4A.S8.S8 R4, R5, R6, R4 ;
         Function : _ZN12_GLOBAL__N_116w8a8_gemm_kernelINS_4TileILi32EEELb0EEEvPKa
         /*0200*/                   IMMA.16832.S8.S8 R24, R8.ROW, R20.COL, R24 ;
@@ -139,11 +152,16 @@ def test_count_sass():
         /*0100*/                   IMMA.16832.S8.S8 R24, R8.ROW, R20.COL, R24 ;
         Function : _ZN12_GLOBAL__N_120w8a8_qrows_q8_kernelINS_5QRowsILi64EEELb1EEEvPKf
         /*0100*/                   IMMA.16832.S8.S8 R24, R8.ROW, R20.COL, R24 ;
+        Function : _ZN12_GLOBAL__N_122w4a8_qrows_qout_kernelINS_5QRowsILi64EEELb1EEEvPKf
+        /*0100*/                   LOP3.LUT R4, R5, 0xf0f0f0f, RZ, 0xc0, !PT ;
+        /*0110*/                   IMMA.16832.S8.S8 R24, R8.ROW, R20.COL, R24 ;
+        /*0120*/                   IMMA.16832.S8.S8 R28, R8.ROW, R22.COL, R28 ;
     """
     assert C.count_sass(sass, "w8a8_gemm_kernel") == {"IMMA": 3, "HGMMA": 0, "IDP": 0}
-    assert C.count_sass(sass, "quant_w8a8_kernel") == {"IMMA": 0, "HGMMA": 0, "IDP": 1}
-    # K1 and K2 are counted together under their shared prefix
+    assert C.count_sass(sass, "quant_gemm_kernel") == {"IMMA": 0, "HGMMA": 0, "IDP": 1}
+    # K1 and K2 are counted together under their shared prefix, K6/K7 apart
     assert C.count_sass(sass, "w8a8_qrows") == {"IMMA": 2, "HGMMA": 0, "IDP": 0}
+    assert C.count_sass(sass, "w4a8_qrows") == {"IMMA": 2, "HGMMA": 0, "IDP": 0}
 
 
 def test_device_ms_of():
@@ -163,4 +181,13 @@ def test_device_ms_of():
             (0.1, 12)})
     assert C.device_ms_of(prof, "w8a8_qrows_qout_kernel") == (0.2, 18)
     assert C.device_ms_of(prof, "w8a8_qrows_q8_kernel") == (0.1, 12)
+    # K6 and K7 apart from them, as the int4 path reports them
+    prof["by_kernel"].update({
+        "void (anonymous namespace)::w4a8_qrows_qout_kernel<QRows<64, 512, 1, 2, true>, true>"
+        "(...)": (0.25, 18),
+        "void (anonymous namespace)::w4a8_qrows_q8_kernel<QRows<64, 512, 1, 2, true>, true>"
+        "(...)": (0.125, 12)})
+    assert C.device_ms_of(prof, "w4a8_qrows_qout_kernel") == (0.25, 18)
+    assert C.device_ms_of(prof, "w4a8_qrows_q8_kernel") == (0.125, 12)
+    assert C.device_ms_of(prof, "w8a8_qrows_qout_kernel") == (0.2, 18)
     assert C.device_ms_of(None, "decode_attn_kernel") == (0, 0)

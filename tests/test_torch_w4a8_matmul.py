@@ -7,7 +7,8 @@ interpreted kernels contract ``acc * s + b`` into an FMA on the CPU),
 atol 1e-4 / rtol 1e-5 for K6, and K7's int8 rows equal with scales within
 rtol 1e-6.  Against the JAX package's eager chain, which divides exactly
 and does not contract, each is bit-equal.  The wrappers' argument checks,
-and their CPU dispatch to the plain versions.  The CUDA kernels themselves
+and their CPU dispatch to the plain versions; K6/K7's configuration planner
+(``plan_w8a8_qrows`` with ``packed=True``).  The CUDA kernels themselves
 are held against these plain versions on the card by chip_smoke.py."""
 
 import jax
@@ -156,3 +157,81 @@ def test_wrappers_reject_bad_inputs():
     # f32 input only; scales and bias f32 [N]
     _raises(K.quant_w8a8_matmul, x.double(), w8)
     _raises(K.quant_w4a8_matmul, x, p, sw=torch.ones(95))
+
+
+# K6/K7's configuration planner (csrc/w4a8_qrows.cu over csrc/qrows.cuh):
+# the K x N grid of K1/K2's planner tests (tests/test_torch_w8a8_matmul.py),
+# even K only
+PACKED_K = [16, 64, 300, 304, 512, 1024, 1344, 1408, 2000, 2048]
+PACKED_N = [8, 96, 200, 512, 513, 1000, 1024, 1025, 1536, 2048]
+
+
+@pytest.mark.parametrize("k", PACKED_K)
+@pytest.mark.parametrize("n", PACKED_N)
+def test_packed_qrows_plan_covers_every_output_once(k, n):
+    """As K1/K2's planner test: the map from (CTA, warp, mma fragment) to
+    output elements covers every row of M and every column of N exactly
+    once, at M = 1, a ragged M and the int4 path's 36,864 rows; and the
+    packed plan never takes tile 1, which K6/K7 do not build."""
+    for m in (1, 129, 36864):
+        tile, smem, ctas = K.plan_w8a8_qrows(m, k, n, packed=True)
+        bm, bn, ch, warps_m = K.QROWS_TILES[tile]
+        warps_n = K.QROWS_WARPS // warps_m
+        wm, wn = bm // warps_m, bn // warps_n
+        assert tile != 1 and ctas == -(-m // bm)
+        # a row: CTA, warp along M, 16-row mma tile, g, g + 8
+        rows = (np.arange(ctas)[:, None, None, None, None] * bm
+                + np.arange(warps_m)[:, None, None, None] * wm
+                + np.arange(wm // 16)[:, None, None] * 16
+                + np.arange(8)[:, None] + np.arange(2) * 8).ravel()
+        assert np.array_equal(np.sort(rows), np.arange(ctas * bm)) and ctas * bm >= m
+        # a column: chunk, warp along N, n8 tile, 2t, 2t + 1
+        cols = (np.arange(ch)[:, None, None, None, None] * bn
+                + np.arange(warps_n)[:, None, None, None] * wn
+                + np.arange(wn // 8)[:, None, None] * 8
+                + np.arange(4)[:, None] * 2 + np.arange(2)).ravel()
+        assert np.array_equal(np.sort(cols), np.arange(ch * bn)) and ch * bn >= n
+
+
+@pytest.mark.parametrize("n", PACKED_N)
+def test_packed_qrows_shared_memory_fits(n):
+    """At every even K up to 2048 the packed plan's shared memory fits the
+    H100's 232,448 bytes per block, is the configuration's own, holds the
+    resident int8 x rows, the ring of 32-row packed W tiles and the f32
+    output staging; and no configuration takes more with packed W than
+    with int8 W."""
+    for k in range(2, K.MAX_KN + 1, 2):
+        tile, smem, _ = K.plan_w8a8_qrows(7, k, n, packed=True)
+        bm, bn, ch, _ = K.QROWS_TILES[tile]
+        assert smem == K.qrows_smem(tile, k, packed=True) <= K.MAX_SMEM
+        assert smem % 16 == 0 and n <= bn * ch
+        assert smem >= max(bm * k + K.QROWS_STAGES * 32 * bn, bm * n * 4)
+        for t in range(len(K.QROWS_TILES)):
+            assert K.qrows_smem(t, k, packed=True) < K.qrows_smem(t, k)
+
+
+def test_packed_qrows_plan_main_shape():
+    """At the int4 path's [36864,512] x [512,512]: tile 0 (BM = 64 rows of
+    512 columns), 576 CTAs of 135,424 bytes (one per SM), against K1's
+    178,432: the f32 output staging [64, 520] now outweighs the loop's
+    buffers."""
+    tile, smem, ctas = K.plan_w8a8_qrows(36864, 512, 512, packed=True)
+    assert (tile, ctas, smem) == (0, 576, 135424)
+    assert smem == 2304 + 64 * 520 * 4 > 2304 + 64 * 528 + 3 * 32 * 528 + 512 * 80
+    assert K.plan_w8a8_qrows(36864, 512, 512)[1] == 178432
+    assert 2 * smem > K.MAX_SMEM
+
+
+def test_packed_qrows_plan_keeps_bm_64_at_every_k():
+    """The packed ring leaves tile 0 room for every even K <= 2048 at N <=
+    512, where int8 W drops to BM = 32 above K = 1344."""
+    for k in range(2, K.MAX_KN + 1, 2):
+        assert K.plan_w8a8_qrows(64, k, 512, packed=True)[0] == 0
+    assert K.plan_w8a8_qrows(64, 2048, 512)[0] == 1
+
+
+@pytest.mark.parametrize("k", [1, 301, 2047])
+def test_packed_qrows_plan_refuses_odd_k(k):
+    with pytest.raises(ValueError):
+        K.plan_w8a8_qrows(4, k, 96, packed=True)
+    K.plan_w8a8_qrows(4, k, 96)   # int8 weights take any K
