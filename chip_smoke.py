@@ -32,9 +32,15 @@ Phases, each printed on its own line with its seconds:
               all 12 of their kernel instances (3 configurations x vector
               and scalar loads x K6/K7), and at K % 4 == 2, with the same
               SASS gate on their own source; K4 (quant_w8a8_matmul) and K8
-              (quant_w4a8_matmul) bit for bit at the encoder FFN shape, the
-              decode-step shape, M=1 with a ragged K, lead dims, and (K4) the
-              K-tiled contract at K=16384 and K=9728.  CUDA-event times of
+              (quant_w4a8_matmul) bit for bit at ``QGEMM_SHAPES`` (the
+              encoder FFN's two products, the decode step's, M=1 with a
+              ragged K, lead dims, ragged N and K, and K past the resident
+              limit; K4 also the K-tiled contract at K=16384 and K=9728),
+              which run all 16 of their kernel instances (4 configurations x
+              vector and scalar loads x K4/K8), with the same SASS gate on
+              ``quant_gemm_kernel``, and timed at the FFN's two shapes and
+              the decode step's, each configuration too, beside K5 behind
+              the per-token quantize chain.  CUDA-event times of
               each kernel, its plain version and a partial yardstick (no
               single PyTorch call computes any of them: ``torch._int_mm``
               alone on the int8 or unpacked int4 weights for the matmuls,
@@ -119,6 +125,21 @@ K12_SHAPES = [((512, 72), 512, 512), ((1000,), 512, 512), ((48,), 64, 96),
 # instances too; and K % 4 == 2, where the last k quad's odd packed row is
 # past K/2
 K67_SHAPES = K12_SHAPES + [((37,), 130, 96)]
+# K4/K8's checks: the encoder FFN shape, the FFN's second product, the
+# decode step's, M = 1 with a ragged K, lead dims, ragged N with enough rows
+# for BM 128 and for BM 64 (scalar loads), ragged N and K at BM 32, K % 4 ==
+# 2, and K past the resident limit (streamed x) with vector and scalar
+# loads; K4 also at the JAX K-tiled kernel's K = 16384 and K = 9728.  Each
+# kernel instance runs (plan_quant_gemm with the H100's 132 SMs)
+QGEMM_COMMON = [((36864,), 512, 2048), ((36864,), 2048, 512), ((512,), 512, 512),
+                ((1,), 300, 96), ((4, 15), 128, 128), ((3000,), 300, 1500),
+                ((2200,), 300, 1000), ((129,), 304, 200), ((37,), 130, 96),
+                ((5,), 2050, 200)]
+QGEMM_SHAPES = {"qgemm": QGEMM_COMMON + [((24,), 16384, 96), ((16,), 9728, 64)],
+                "qgemm4": QGEMM_COMMON + [((24,), 4096, 96)]}
+# K4/K8 timed at the FFN shape (the kernel row's), its second product and
+# the decode step's
+QGEMM_TIME_SHAPES = [((36864,), 512, 2048), ((36864,), 2048, 512), ((512,), 512, 512)]
 PALLAS = "onnx_transformer_tpu/ops/pallas/"
 # name, its source, the TPU kernel it replaces (file:line of the function)
 KERNELS = {
@@ -294,13 +315,20 @@ def check_kernels(device, shapes, time_shape, packed: bool = False) -> dict:
     return rows
 
 
-def check_quant_gemm(device, shapes: dict, time_shape) -> dict:
+def check_quant_gemm(device, shapes: dict, time_shapes) -> dict:
     """Hold K4 (int8 weights) and K8 (packed int4) bit for bit against
     their plain versions at ``shapes`` ({key: [(lead, K, N), ...]}), with
-    and without a bias, and time each at ``time_shape``."""
+    and without a bias, and time each at ``time_shapes``: the kernel, its
+    plain version (the "int8" chain of ``quant/w8a8.py``), the bound,
+    ``torch._int_mm`` alone (partial yardstick) and K5 behind the port's
+    per-token quantize chain (mode "pallas", on the unpacked weights for
+    K8), and each configuration the planner could take there.  The first
+    time shape gives the kernel's row, which carries them all under
+    "shapes"."""
     import torch
 
     from onnx_transformer_tpu_torch.ops.kernels import w8a8_matmul as K
+    from onnx_transformer_tpu_torch.quant import core as Q
     from onnx_transformer_tpu_torch.quant.core import unpack_int4
 
     kernels = {"qgemm": (K.quant_w8a8_matmul, K.quant_w8a8_matmul_ref, False),
@@ -327,24 +355,53 @@ def check_quant_gemm(device, shapes: dict, time_shape) -> dict:
                     raise AssertionError(f"{fn.__name__} and its plain version differ at "
                                          f"{tuple(x.shape)}")
                 err = max(err, e)
-        lead, k, n = time_shape
-        x, wq, sw, b = kernel_inputs(lead, k, n, seed=599, device=device, packed=packed)
-        x2 = x.reshape(-1, k)
-        m = x2.shape[0]
-        w8 = unpack_int4(wq) if packed else wq
-        xq = torch.round(x2 / (x2.abs().amax(-1, keepdim=True).clamp_min(1e-5) / 127)).to(
-            torch.int8)
-        t_int_mm = cuda_ms(lambda: K.int_mm(xq, w8))
-        t_plain_a = cuda_ms(lambda: ref(x2, wq, sw, b))
-        t_kernel = cuda_ms(lambda: fn(x, wq, sw, b))
-        t_plain_b = cuda_ms(lambda: ref(x2, wq, sw, b))
-        bms, by = bound_ms(m, k, n, 4 * n, wq.numel())
-        rows[key] = {"ms": t_kernel, "plain_ms": min(t_plain_a, t_plain_b), "bound_ms": bms,
-                     "bound_by": by, "max_abs_err": err,
-                     "partial_yardstick": {"call": "torch._int_mm", "ms": t_int_mm}}
-        print(f"time {fn.__name__} at [{m},{k}]x[{k},{n}]: kernel {t_kernel:.6f} ms, "
-              f"plain {t_plain_a:.6f}/{t_plain_b:.6f} ms, bound {bms:.6f} ms ({by}); "
-              f"torch._int_mm alone (partial yardstick) {t_int_mm:.6f} ms", flush=True)
+        per_shape = []
+        for lead, k, n in time_shapes:
+            x, wq, sw, b = kernel_inputs(lead, k, n, seed=599, device=device, packed=packed)
+            x2 = x.reshape(-1, k)
+            m = x2.shape[0]
+            w8 = unpack_int4(wq) if packed else wq
+            xq = torch.round(x2 / (x2.abs().amax(-1, keepdim=True).clamp_min(1e-5) / 127)).to(
+                torch.int8)
+
+            def k5_chain():
+                sx = Q.act_scale_per_token(x2)
+                return K.w8a8_matmul(Q.quantize(x2, sx), sx[:, 0], w8, sw, b)
+
+            t_int_mm = cuda_ms(lambda: K.int_mm(xq, w8))
+            t_k5_chain = cuda_ms(k5_chain)
+            t_plain_a = cuda_ms(lambda: ref(x2, wq, sw, b))
+            t_kernel = cuda_ms(lambda: fn(x, wq, sw, b))
+            t_plain_b = cuda_ms(lambda: ref(x2, wq, sw, b))
+            bms, by = bound_ms(m, k, n, 4 * n, wq.numel())
+            tile = K.plan_quant_gemm(m, k, n, packed)[0]
+            # every configuration that holds this K, launched directly (not
+            # counted): does the planner pick the fastest?
+            tiles_ms = {}
+            out = torch.empty((m, n), dtype=torch.float32, device=device)
+            for t in range(len(K.QGEMM_TILES)):
+                try:
+                    K.plan_quant_gemm(m, k, n, packed, tile=t)
+                except ValueError:
+                    continue
+                if device.type == "cuda":
+                    tiles_ms[t] = cuda_ms(lambda: K.quant_gemm_launch(x2, wq, sw, b, out, packed,
+                                                                      t))
+            print(f"time {fn.__name__} at [{m},{k}]x[{k},{n}] (tile {tile}): kernel "
+                  f"{t_kernel:.6f} ms, plain (the int8 chain) {t_plain_a:.6f}/{t_plain_b:.6f} "
+                  f"ms, bound {bms:.6f} ms ({by}); torch._int_mm alone (partial yardstick) "
+                  f"{t_int_mm:.6f} ms; K5 behind the quantize chain {t_k5_chain:.6f} ms; "
+                  f"tiles {tiles_ms}", flush=True)
+            per_shape.append({"shape": [m, k, n], "tile": tile, "ms": t_kernel,
+                              "plain_ms": min(t_plain_a, t_plain_b), "bound_ms": bms,
+                              "bound_by": by, "int_mm_ms": t_int_mm,
+                              "k5_chain_ms": t_k5_chain, "tiles_ms": tiles_ms})
+        first = per_shape[0]
+        rows[key] = {"ms": first["ms"], "plain_ms": first["plain_ms"],
+                     "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+                     "max_abs_err": err,
+                     "partial_yardstick": {"call": "torch._int_mm", "ms": first["int_mm_ms"]},
+                     "shapes": per_shape}
     return rows
 
 
@@ -933,7 +990,8 @@ def main() -> int:
     with phase("kernels"):
         rows = check_kernels(device, K12_SHAPES, ((512, 72), 512, 512))
         rows.update(check_kernels(device, K67_SHAPES, ((512, 72), 512, 512), packed=True))
-        for label, prefix in (("K1/K2", "w8a8_qrows"), ("K6/K7", "w4a8_qrows")):
+        for label, prefix in (("K1/K2", "w8a8_qrows"), ("K6/K7", "w4a8_qrows"),
+                              ("K4/K8", "quant_gemm_kernel")):
             counts = sass_counts(build.build_info["path"], prefix)
             print(f"kernels {label} ({prefix}) SASS instructions (cuobjdump): {counts}",
                   flush=True)
@@ -949,11 +1007,7 @@ def main() -> int:
         rows.update(check_k3(device, [(512, 72, 512, 8), (3, 72, 512, 8), (3, 1, 512, 8),
                                       (4, 1024, 512, 8), (2, 9, 18, 3), (3, 72, 1024, 8),
                                       (5, 33, 256, 16)], (512, 72, 512, 8)))
-        common = [((36864,), 512, 2048), ((512,), 512, 512), ((1,), 300, 96),
-                  ((4, 15), 128, 128)]
-        rows.update(check_quant_gemm(
-            device, {"qgemm": common + [((24,), 16384, 96), ((16,), 9728, 64)],
-                     "qgemm4": common}, ((36864,), 512, 2048)))
+        rows.update(check_quant_gemm(device, QGEMM_SHAPES, QGEMM_TIME_SHAPES))
 
     with phase("main path"):
         base = build_iwslt(device, num_layers=6, batch=512, src_len=72)

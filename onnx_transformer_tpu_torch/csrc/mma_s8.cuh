@@ -1,13 +1,16 @@
 // Device helpers shared by the int8 tensor-core kernels for Hopper (sm_90a):
-// K5 (w8a8_gemm.cu), K1/K2 (w8a8_qrows.cu) and K6/K7 (w4a8_qrows.cu).
+// K5 (w8a8_gemm.cu), K1/K2 (w8a8_qrows.cu), K6/K7 (w4a8_qrows.cu) and
+// K4/K8 (quant_gemm.cu).
 //
 // - cp.async 16-byte copies into shared memory, zero-filling when asked;
 // - ldmatrix of four 8x8 b16 matrices, which for s8 operands gives the
 //   A (16x32) and B (32x8, two n8 blocks) fragments of mma.m16n8k32;
 // - mma.sync m16n8k32 s8.s8.s32;
-// - the W staging: s8 mma wants both operands K-major, and wq is [K,N],
-//   N-contiguous, as the JAX package passes it.  Neither ldmatrix .trans
-//   nor TMA transposes bytes, so a raw [64, BN] W tile is copied as it is
+// - sext_nibbles, the sign extension of packed int4 weights;
+// - for K5, K1/K2 and K6/K7, the W staging and transpose: s8 mma wants
+//   both operands K-major, and wq is [K,N], N-contiguous, as the JAX
+//   package passes it.  Neither ldmatrix .trans (it moves b16 pairs) nor
+//   TMA transposes bytes, so a raw [64, BN] W tile is copied as it is
 //   (stage_w) and every thread of the CTA then transposes 4x4-byte blocks
 //   with byte permutes into a K-major [BN, 64] tile that ldmatrix reads
 //   (transpose_w).  Raw rows are grouped by k % 4 (raw_row), so the
@@ -16,6 +19,8 @@
 //   raw tile of 32 packed rows (stage_w_int4, rows grouped by parity), whose
 //   nibbles the transpose sign-extends to int8 before the same byte permutes
 //   (transpose_w_int4).  No unpacked weight exists outside shared memory.
+//   (K4/K8 skip the transpose pass: byte permutes of what ldmatrix .trans
+//   reads from the raw tile give the K-major fragments, quant_gemm.cu.)
 //
 // A tile configuration C names BN (the W tile's columns), kWRow (its
 // padded raw row, BN + 16 bytes) and kThreads (the CTA's threads).
@@ -29,6 +34,7 @@ namespace {
 
 constexpr int kBK = 64;               // K bytes per tile: two k32 mma steps
 constexpr int kRow = kBK + 16;        // padded shared row of a K-major tile
+constexpr int kMaxSmem = 232448;      // the H100's opt-in shared memory per block
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -39,7 +39,8 @@
 // [BM][K + 16] in shared memory, which is the A operand of every product:
 // each warp reads 1-4 of its rows at once, 16 bytes per lane with streaming
 // loads (x is read from device memory once), takes the absmax by shuffles
-// and writes 4 int8 per lane.  The first two W tiles are already in flight.
+// and writes 4 int8 per lane (xquant.cuh, quantize_x_rows, shared with
+// K4/K8).  The first two W tiles are already in flight.
 // Phase B walks K (and N in chunks of 512 columns where N > 512) in tiles
 // of 64 through a 3-stage cp.async ring of raw W tiles ([64, 512] int8, or
 // [32, 512] packed), each transposed in shared memory into a K-major int8
@@ -77,16 +78,13 @@
 
 #include <type_traits>
 
-#include "mma_s8.cuh"
+#include "xquant.cuh"
 
 namespace {
 
 constexpr int kQThreads = 512;        // 16 warps
 constexpr int kStages = 3;            // W ring depth
-constexpr int kMaxSmem = 232448;      // the H100's opt-in limit per block
 constexpr int kMaxKN = 2048;
-constexpr float kScaleFloor = 1e-5f;
-constexpr float kQmax = 127.f;
 
 // BM rows per CTA, N in CH chunks of BN = 512 columns, WARPS_M x (16 /
 // WARPS_M) warps over each chunk; W int8 [K, N], or with PACKED packed int4
@@ -148,78 +146,6 @@ __device__ __forceinline__ void transpose_tile(const uint8_t* __restrict__ ws,
     transpose_w<C>(ws, bt);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float absmax4(float4 v) {
-  return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
-}
-
-__device__ __forceinline__ uint32_t quantize4(float4 v, float s) {
-  const uint32_t q0 = static_cast<uint32_t>(__float2int_rn(__fdiv_rn(v.x, s))) & 0xFFu;
-  const uint32_t q1 = static_cast<uint32_t>(__float2int_rn(__fdiv_rn(v.y, s))) & 0xFFu;
-  const uint32_t q2 = static_cast<uint32_t>(__float2int_rn(__fdiv_rn(v.z, s))) & 0xFFu;
-  const uint32_t q3 = static_cast<uint32_t>(__float2int_rn(__fdiv_rn(v.w, s))) & 0xFFu;
-  return q0 | (q1 << 8) | (q2 << 16) | (q3 << 24);
-}
-
-// Phase A: rows r of the CTA's block, RP of them per warp at once, quantized
-// per token into xq [BM][XS] (columns K..XS-16 zero; rows past M zero) and
-// their scales into sxs.  A lane holds 4 consecutive k of each 128, so a
-// row of K <= 128 * (16 / RP) lies in 16 / RP float4 per lane.
-template <int RP, class C, bool kVec>
-__device__ __forceinline__ void quantize_rows(const float* __restrict__ x, int8_t* xq,
-                                              float* sxs, int m0, int M, int K, int XS) {
-  constexpr int SPR = 16 / RP;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int kp = XS - 16;
-  for (int r0 = warp; r0 < C::BM; r0 += C::kWarps * RP) {
-    float4 v[RP][SPR];
-#pragma unroll
-    for (int j = 0; j < RP; ++j) {
-      const int r = r0 + C::kWarps * j;
-      const bool row_ok = r < C::BM && m0 + r < M;
-      const float* xr = x + (size_t)(m0 + r) * K;
-#pragma unroll
-      for (int c = 0; c < SPR; ++c) {
-        const int k = 128 * c + 4 * lane;
-        float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (row_ok && k < K) {
-          if (kVec) {
-            t = __ldcs(reinterpret_cast<const float4*>(xr + k));
-          } else {
-            t.x = __ldcs(xr + k);
-            if (k + 1 < K) t.y = __ldcs(xr + k + 1);
-            if (k + 2 < K) t.z = __ldcs(xr + k + 2);
-            if (k + 3 < K) t.w = __ldcs(xr + k + 3);
-          }
-        }
-        v[j][c] = t;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < RP; ++j) {
-      const int r = r0 + C::kWarps * j;
-      float a = 0.f;
-#pragma unroll
-      for (int c = 0; c < SPR; ++c) a = fmaxf(a, absmax4(v[j][c]));
-      const float s = __fdiv_rn(fmaxf(warp_max(a), kScaleFloor), kQmax);
-      if (r < C::BM) {
-        if (lane == 0) sxs[r] = s;
-#pragma unroll
-        for (int c = 0; c < SPR; ++c) {
-          const int k = 128 * c + 4 * lane;
-          if (k < kp)
-            *reinterpret_cast<uint32_t*>(xq + (size_t)r * XS + k) = quantize4(v[j][c], s);
-        }
-      }
-    }
-  }
-}
-
 template <class C, bool kQ8, bool kVec>
 __device__ __forceinline__ void qrows_body(const float* __restrict__ x,
                                            const typename C::W* __restrict__ wq,
@@ -253,13 +179,7 @@ __device__ __forceinline__ void qrows_body(const float* __restrict__ x,
     cp_async_commit();
   }
 
-  const int per = (K + 127) / 128;       // float4 per lane per row
-  if (per <= 4)
-    quantize_rows<4, C, kVec>(x, xq, sxs, m0, M, K, XS);
-  else if (per <= 8)
-    quantize_rows<2, C, kVec>(x, xq, sxs, m0, M, K, XS);
-  else
-    quantize_rows<1, C, kVec>(x, xq, sxs, m0, M, K, XS);
+  quantize_x_rows<C, kVec>(x, xq, sxs, m0, M, K, XS);
 
   int acc[C::CH][C::MI][C::NI][4];
 #pragma unroll

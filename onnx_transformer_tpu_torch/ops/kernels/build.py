@@ -30,8 +30,8 @@ SIGNATURES = {
     "quant_w8a8_q8": "ppppppiiiiip",
     "quant_w4a8_qout": "pppppiiiiip",
     "quant_w4a8_q8": "ppppppiiiiip",
-    "quant_w8a8_gemm": "pppppiiip",
-    "quant_w4a8_gemm": "pppppiiip",
+    "quant_w8a8_gemm": "pppppiiiiiip",
+    "quant_w4a8_gemm": "pppppiiiiiip",
     "w8a8_gemm": "ppppppiiiip",
     "decode_attention_int8": "pppppppiiiiifip",
 }

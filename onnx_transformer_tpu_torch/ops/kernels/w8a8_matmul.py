@@ -14,7 +14,9 @@
   :func:`plan_w8a8_tile`.
 - K4 ``quant_w8a8_matmul`` and K8 ``quant_w4a8_matmul``: the per-token
   quantize fused in front of K5's product and epilogue, over int8 or
-  packed-int4 weights, at any K (``csrc/quant_gemm.cu``).
+  packed-int4 weights, at any K, on the tensor cores (``csrc/quant_gemm.cu``):
+  each CTA quantizes a block of x rows once and sweeps N, its configuration
+  and persistent grid chosen from the shape by :func:`plan_quant_gemm`.
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and counts the
 launch in its ``launches`` attribute; for a CPU tensor it takes the plain
@@ -24,6 +26,8 @@ must be contiguous and on the input's device; the input is made contiguous.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -92,6 +96,62 @@ def plan_w8a8_qrows(m: int, k: int, n: int, packed: bool = False) -> tuple[int, 
         if n <= bn * ch and smem <= MAX_SMEM:
             return i, smem, -(-m // bm)
     raise AssertionError(f"no configuration holds K={k}, N={n}")
+
+
+# K4/K8's configurations (``csrc/quant_gemm.cu``), by the index the kernel
+# takes: (BM, x resident) of an 8-warp CTA that walks output units of BM
+# rows x QGEMM_BN columns; the kernels' registers allow two CTAs per SM
+QGEMM_TILES = ((128, True), (64, True), (32, True), (64, False))
+QGEMM_BLOCKS_PER_SM = 2
+QGEMM_BN = 128
+QGEMM_STAGES = 3      # depth of the W tile ring
+MAX_RESIDENT_K = 2048  # a resident x row is held in registers while it is quantized
+SM_SMEM = 233472      # the H100's shared memory per SM; each CTA also reserves 1 KB
+H100_SMS = 132
+
+
+def quant_gemm_smem(tile: int, k: int, packed: bool = False) -> int:
+    """Dynamic shared memory of K4's configuration ``tile`` at depth k (with
+    ``packed``, K8's), as the kernel lays it out: the row scales (to 128
+    bytes), the int8 x tile (resident: [BM, K to 64, + 16]; streamed: one
+    K tile [BM, 80]) and the ring of raw W tiles ([64, 128] int8 or [32,
+    128] packed)."""
+    bm, resident = QGEMM_TILES[tile]
+    head = -(-bm * 4 // 128) * 128
+    x_row = -(-k // 64) * 64 + 16 if resident else 80
+    return head + bm * x_row + QGEMM_STAGES * (32 if packed else 64) * QGEMM_BN
+
+
+def quant_gemm_units(m: int, n: int, tile: int) -> int:
+    """Output units (BM rows x QGEMM_BN columns) of an [m, n] output."""
+    return -(-m // QGEMM_TILES[tile][0]) * -(-n // QGEMM_BN)
+
+
+def plan_quant_gemm(m: int, k: int, n: int, packed: bool = False, sms: int = H100_SMS,
+                    tile: int | None = None) -> tuple[int, int, int]:
+    """K4's configuration for an [m, k] x [k, n] product (with ``packed``,
+    K8's over packed-int4 weights, K even), or ``tile`` where given: with x
+    resident (K <= ``MAX_RESIDENT_K``) the largest BM whose shared memory
+    holds K and whose units give each of the two CTAs on each of the card's
+    ``sms`` SMs work, else BM 32; above that, BM 64 with x streamed by K
+    tile.  Returns (tile index, shared-memory bytes, CTAs): a persistent
+    grid of as many CTAs as the SMs hold at once, never more than the
+    units, each walking a contiguous run of them."""
+    if k <= 0 or n <= 0 or m < 0:
+        raise ValueError(f"M={m}, K={k} and N={n} must be positive")
+    if packed and k % 2:
+        raise ValueError(f"K={k} must be even for packed-int4 weights")
+    if tile is None:
+        if k > MAX_RESIDENT_K:
+            tile = 3
+        else:
+            tile = next((t for t in (0, 1) if quant_gemm_smem(t, k, packed) <= MAX_SMEM
+                         and quant_gemm_units(m, n, t) >= QGEMM_BLOCKS_PER_SM * sms), 2)
+    smem = quant_gemm_smem(tile, k, packed)
+    if smem > MAX_SMEM or (QGEMM_TILES[tile][1] and k > MAX_RESIDENT_K):
+        raise ValueError(f"configuration {tile} does not hold K={k}")
+    per_sm = min(QGEMM_BLOCKS_PER_SM, SM_SMEM // (smem + 1024))
+    return tile, smem, max(1, min(quant_gemm_units(m, n, tile), sms * per_sm))
 
 
 def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -245,7 +305,7 @@ def _q8(fn, entry: str, ref, x, wq, sw, b, packed: bool):
     return q.reshape(*lead, n), s.reshape(*lead, 1)
 
 
-def _quant_gemm(fn, entry: str, ref, x, wq, sw, b, packed: bool, max_k: int | None):
+def _quant_gemm(fn, ref, x, wq, sw, b, packed: bool, max_k: int | None):
     x2, n, b = _check(x, wq, sw, b, packed, max_k=max_k, max_n=None)
     lead = x.shape[:-1]
     if not x.is_cuda:
@@ -254,9 +314,27 @@ def _quant_gemm(fn, entry: str, ref, x, wq, sw, b, packed: bool, max_k: int | No
     m, k = x2.shape
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m and n:
-        launch(entry, x.device, *_ptrs(x=x2, wq=wq, sw=sw, b=b), out.data_ptr(), m, k, n)
+        quant_gemm_launch(x2, wq, sw, b, out, packed)
         fn.launches += 1
     return out.reshape(*lead, n)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def quant_gemm_launch(x2, wq, sw, b, out, packed: bool, tile: int | None = None) -> None:
+    """Launch K4's kernel (with ``packed``, K8's) on checked CUDA operands
+    (x2 [M, K], out [M, N]) with the planner's configuration for this
+    card, or with ``tile``; counts nothing.  The wrappers call it with the
+    planner's pick; the card check also times the other configurations
+    through it."""
+    m, k = x2.shape
+    n = out.shape[1]
+    plan = plan_quant_gemm(m, k, n, packed, _sm_count(x2.device.index), tile)
+    launch("quant_w4a8_gemm" if packed else "quant_w8a8_gemm", x2.device,
+           *_ptrs(x=x2, wq=wq, sw=sw, b=b, out=out), m, k, n, *plan)
 
 
 def quant_w8a8_matmul_qout(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
@@ -293,16 +371,16 @@ def quant_w8a8_matmul(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
                       b: torch.Tensor | None = None) -> torch.Tensor:
     """K4: x f32 [..., K] -> f32 [..., N] = ``float(quantize(x) @ wq) *
     (sx * sw) + b`` with the per-token scale of the whole row; any K, N."""
-    return _quant_gemm(quant_w8a8_matmul, "quant_w8a8_gemm", quant_w8a8_matmul_ref,
-                       x, wq, sw, b, packed=False, max_k=None)
+    return _quant_gemm(quant_w8a8_matmul, quant_w8a8_matmul_ref, x, wq, sw, b, packed=False,
+                       max_k=None)
 
 
 def quant_w4a8_matmul(x: torch.Tensor, wp: torch.Tensor, sw: torch.Tensor,
                       b: torch.Tensor | None = None) -> torch.Tensor:
     """K8: K4 over packed-int4 weights wp uint8 [K/2, N]; K even and
     <= 4096, any N."""
-    return _quant_gemm(quant_w4a8_matmul, "quant_w4a8_gemm", quant_w4a8_matmul_ref,
-                       x, wp, sw, b, packed=True, max_k=MAX_K_W4A8)
+    return _quant_gemm(quant_w4a8_matmul, quant_w4a8_matmul_ref, x, wp, sw, b, packed=True,
+                       max_k=MAX_K_W4A8)
 
 
 def w8a8_matmul(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,

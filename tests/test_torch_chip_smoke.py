@@ -60,9 +60,20 @@ def test_kernel_checks(rehearsal):
     k67 = [s for s in C.K67_SHAPES if np.prod(s[0]) <= 1000]
     assert len(k67) == len(C.K67_SHAPES) - 1
     rows.update(C.check_kernels(CPU, [((4, 7), 64, 96)] + k67, ((4, 7), 64, 96), packed=True))
-    common = [((5,), 64, 96), ((1,), 300, 96), ((4, 15), 128, 128)]
-    rows.update(C.check_quant_gemm(CPU, {"qgemm": common + [((3,), 9728, 8)],
-                                         "qgemm4": common}, ((16,), 64, 64)))
+    # K4/K8 at theirs, all but the four with thousands of rows (the plain
+    # version's product is slow on the CPU), timed at small stand-ins for
+    # the three time shapes
+    small = {key: [s for s in shapes if np.prod(s[0]) <= 1000 and s[2] <= 1000]
+             for key, shapes in C.QGEMM_SHAPES.items()}
+    assert [len(C.QGEMM_SHAPES[key]) - len(small[key]) for key in small] == [4, 4]
+    q_times = [((16,), 64, 256), ((16,), 256, 64), ((8,), 64, 64)]
+    rows.update(C.check_quant_gemm(CPU, small, q_times))
+    for key in ("qgemm", "qgemm4"):
+        shapes = rows[key]["shapes"]
+        assert [s["shape"] for s in shapes] == [[m, k, n] for (m,), k, n in q_times]
+        for s in shapes:
+            assert {"ms", "plain_ms", "bound_ms", "int_mm_ms", "k5_chain_ms", "tiles_ms"} <= set(s)
+        assert rows[key]["bound_ms"] == shapes[0]["bound_ms"]
     assert sorted(rows) == sorted(k for k in C.KERNELS)
     keys = {"ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "partial_yardstick"}
     for row in rows.values():
@@ -136,6 +147,24 @@ def test_k12_shapes_reach_every_kernel_instance():
     assert any(k % 4 == 2 for _, k, _ in C.K67_SHAPES)
 
 
+def test_qgemm_shapes_reach_every_kernel_instance():
+    """The card check's K4/K8 shapes run every configuration of
+    plan_quant_gemm on the H100's 132 SMs (BM 128, 64 and 32 with x
+    resident, BM 64 with x streamed), each with 16-byte loads (K % 4 == 0,
+    N % 16 == 0) and with scalar ones, for K4 and for K8; and include the
+    three timed shapes and K4's K-tiled gates at K = 16384 and K = 9728."""
+    for key, packed in (("qgemm", False), ("qgemm4", True)):
+        reached = set()
+        for lead, k, n in C.QGEMM_SHAPES[key]:
+            assert not packed or (k % 2 == 0 and k <= KM.MAX_K_W4A8)
+            tile = KM.plan_quant_gemm(int(np.prod(lead)), k, n, packed, sms=132)[0]
+            reached.add((tile, k % 4 == 0 and n % 16 == 0))
+        assert reached == {(t, v) for t in range(len(KM.QGEMM_TILES)) for v in (True, False)}
+        assert set(C.QGEMM_TIME_SHAPES) <= set(C.QGEMM_SHAPES[key])
+    assert {((24,), 16384, 96), ((16,), 9728, 64)} <= set(C.QGEMM_SHAPES["qgemm"])
+    assert C.QGEMM_TIME_SHAPES[0] == ((36864,), 512, 2048)
+
+
 def test_count_sass():
     """The tensor-core and dp4a instructions of one kernel's functions in
     cuobjdump's SASS listing; other functions are not counted."""
@@ -144,8 +173,10 @@ def test_count_sass():
         /*0100*/                   LDSM.16.M88.4 R8, [R2] ;
         /*0110*/                   IMMA.16832.S8.S8 R24, R8.ROW, R20.COL, R24 ;
         /*0120*/                   IMMA.16832.S8.S8 R28, R8.ROW, R22.COL, R28 ;
-        Function : _ZN12_GLOBAL__N_117quant_gemm_kernelILb1EEEvPKfPKhS2_S2_Pfiii
+        Function : _ZN12_GLOBAL__N_116dp4a_gemm_kernelILb1EEEvPKfPKhS2_S2_Pfiii
         /*0100*/                   IDP.4A.S8.S8 R4, R5, R6, R4 ;
+        Function : _ZN12_GLOBAL__N_117quant_gemm_kernelINS_5QGemmILi128ELi2ELb1ELb0ELi1EEELb1EEEvPKf
+        /*0100*/                   IMMA.16832.S8.S8 R24, R8.ROW, R20.COL, R24 ;
         Function : _ZN12_GLOBAL__N_116w8a8_gemm_kernelINS_4TileILi32EEELb0EEEvPKa
         /*0200*/                   IMMA.16832.S8.S8 R24, R8.ROW, R20.COL, R24 ;
         Function : _ZN12_GLOBAL__N_122w8a8_qrows_qout_kernelINS_5QRowsILi64EEELb1EEEvPKf
@@ -158,7 +189,8 @@ def test_count_sass():
         /*0120*/                   IMMA.16832.S8.S8 R28, R8.ROW, R22.COL, R28 ;
     """
     assert C.count_sass(sass, "w8a8_gemm_kernel") == {"IMMA": 3, "HGMMA": 0, "IDP": 0}
-    assert C.count_sass(sass, "quant_gemm_kernel") == {"IMMA": 0, "HGMMA": 0, "IDP": 1}
+    assert C.count_sass(sass, "dp4a_gemm_kernel") == {"IMMA": 0, "HGMMA": 0, "IDP": 1}
+    assert C.count_sass(sass, "quant_gemm_kernel") == {"IMMA": 1, "HGMMA": 0, "IDP": 0}
     # K1 and K2 are counted together under their shared prefix, K6/K7 apart
     assert C.count_sass(sass, "w8a8_qrows") == {"IMMA": 2, "HGMMA": 0, "IDP": 0}
     assert C.count_sass(sass, "w4a8_qrows") == {"IMMA": 2, "HGMMA": 0, "IDP": 0}

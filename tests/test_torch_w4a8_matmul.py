@@ -235,3 +235,145 @@ def test_packed_qrows_plan_refuses_odd_k(k):
     with pytest.raises(ValueError):
         K.plan_w8a8_qrows(4, k, 96, packed=True)
     K.plan_w8a8_qrows(4, k, 96)   # int8 weights take any K
+
+
+# K4/K8's configuration planner (csrc/quant_gemm.cu): plan_quant_gemm
+
+
+def _units_of_ctas(units, ctas):
+    """The kernel's split of the units among its CTAs: CTA i walks units
+    [units * i // ctas, units * (i + 1) // ctas)."""
+    return [range(units * i // ctas, units * (i + 1) // ctas) for i in range(ctas)]
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("k", [2, 64, 130, 300, 512, 896, 1000, 2048, 2050, 4096])
+@pytest.mark.parametrize("n", [8, 96, 128, 200, 1000, 1500, 2048])
+def test_qgemm_plan_covers_every_output_once(packed, k, n):
+    """The map from (CTA, unit, warp, mma fragment) to output elements
+    covers every row of M and every column of N exactly once, at M = 1, a
+    ragged M and the encoder's 36,864 rows, on the H100's 132 SMs and on a
+    card with fewer: the CTAs split the units (BM rows x 128 columns, row
+    block major) into contiguous runs, and inside a unit the warps split BM
+    into 16-row mma tiles and the 128 columns into n8 tiles, a lane holding
+    rows g and g + 8 and columns 2t and 2t + 1 of each 16x8 tile."""
+    bn = K.QGEMM_BN
+    for m in (1, 129, 36864):
+        for sms in (132, 7):
+            tile, smem, ctas = K.plan_quant_gemm(m, k, n, packed, sms=sms)
+            bm, _ = K.QGEMM_TILES[tile]
+            nt = -(-n // bn)
+            units = -(-m // bm) * nt
+            assert units == K.quant_gemm_units(m, n, tile)
+            per_sm = min(K.QGEMM_BLOCKS_PER_SM, K.SM_SMEM // (smem + 1024))
+            assert 1 <= ctas == min(units, sms * per_sm)
+            runs = _units_of_ctas(units, ctas)
+            assert sorted(u for r in runs for u in r) == list(range(units))
+            row_cover = np.zeros(-(-m // bm) * bm, np.int32)
+            col_cover = np.zeros(nt * bn, np.int32)
+            for u in range(units):
+                if u % nt == 0:
+                    row_cover[(u // nt) * bm:(u // nt + 1) * bm] += 1
+                if u < nt:
+                    col_cover[u * bn:(u + 1) * bn] += 1
+            assert (row_cover == 1).all() and (col_cover == 1).all()
+    # inside a unit of each configuration: 8 warps, 2 along BM and 4 along
+    # the 128 columns; a lane holds rows g and g + 8 of each 16-row tile and
+    # columns 4q .. 4q + 3 of each of the warp's two 16-column groups
+    warps_m, warps_n = 2, 4
+    for bm, _ in K.QGEMM_TILES:
+        wm, wn = bm // warps_m, bn // warps_n
+        rows = (np.arange(warps_m)[:, None, None, None] * wm
+                + np.arange(wm // 16)[:, None, None] * 16
+                + np.arange(8)[:, None] + np.arange(2) * 8).ravel()
+        cols = (np.arange(warps_n)[:, None, None, None] * wn
+                + np.arange(wn // 16)[:, None, None] * 16
+                + np.arange(4)[:, None] * 4 + np.arange(4)).ravel()
+        assert np.array_equal(np.sort(rows), np.arange(bm))
+        assert np.array_equal(np.sort(cols), np.arange(bn))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_qgemm_plan_shared_memory_and_streamed_limit(packed):
+    """At every K it accepts (K8: even K up to 4096) the plan's shared
+    memory fits the H100's 232,448 bytes per block, is the configuration's
+    own, a multiple of 16 bytes, and holds the int8 x tile and the ring of
+    raw W tiles; x stays resident up to K = 2048 and is streamed by K tile
+    exactly above it; BM 128 holds K up to 1600 (int8 W) or 1664 (packed)."""
+    top = K.MAX_K_W4A8 if packed else 20000
+    raw = (32 if packed else 64) * K.QGEMM_BN
+    for k in range(2 if packed else 1, top + 1, 2 if packed else 1):
+        for m, n in ((36864, 2048), (512, 512)):
+            tile, smem, _ = K.plan_quant_gemm(m, k, n, packed)
+            bm, resident = K.QGEMM_TILES[tile]
+            assert smem == K.quant_gemm_smem(tile, k, packed) <= K.MAX_SMEM
+            assert smem % 16 == 0
+            assert resident == (k <= K.MAX_RESIDENT_K)
+            assert smem >= bm * (k if resident else 64) + K.QGEMM_STAGES * raw
+    top0 = 1664 if packed else 1600
+    assert max(k for k in range(2, 2049, 2)
+               if K.quant_gemm_smem(0, k, packed) <= K.MAX_SMEM) == top0
+    # the planner takes BM 128 at the encoder shape, BM 64 at K = 2048 and
+    # BM 32 at the decode step's 512 rows
+    assert K.plan_quant_gemm(36864, 512, 2048, packed)[0] == 0
+    assert K.plan_quant_gemm(36864, 2048, 512, packed)[0] == 1
+    assert K.plan_quant_gemm(512, 512, 512, packed)[0] == 2
+    with pytest.raises(ValueError):
+        K.plan_quant_gemm(64, 2050, 96, packed, tile=1)   # not resident above 2048
+    with pytest.raises(ValueError):
+        K.plan_quant_gemm(64, top0 + 64, 96, packed, tile=0)  # beyond BM 128's memory
+
+
+def test_qgemm_plan_main_shape():
+    """At [36864,512] x [512,2048]: BM 128, two CTAs per SM (92,672 bytes of
+    shared memory, 80,384 with packed W), 264 CTAs walking 4,608 units; at
+    [36864,2048] x [2048,512] one CTA per SM holds BM 64's 132 KB x tile."""
+    assert K.plan_quant_gemm(36864, 512, 2048) == (0, 92672, 264)
+    assert K.plan_quant_gemm(36864, 512, 2048, packed=True) == (0, 80384, 264)
+    assert K.quant_gemm_units(36864, 2048, 0) == 288 * 16
+    assert K.plan_quant_gemm(36864, 2048, 512) == (1, 156928, 132)
+    assert K.plan_quant_gemm(512, 512, 512) == (2, 41600, 64)
+
+
+@pytest.mark.parametrize("k", [1, 301, 2049])
+def test_qgemm_plan_refuses_odd_k_for_packed(k):
+    with pytest.raises(ValueError):
+        K.plan_quant_gemm(4, k, 96, packed=True)
+    K.plan_quant_gemm(4, k, 96)   # int8 weights take any K
+
+
+@pytest.mark.parametrize("m,k,n,seed,block_k", [
+    (37, 130, 200, 31, 2048),    # ragged M, K % 64 != 0, ragged N (N % 16 == 8)
+    (129, 304, 136, 32, 2048),   # ragged M past one BM 128 block
+    (9, 2050, 96, 33, 2048),     # K just past the resident limit (streamed x)
+    (8, 8200, 40, 34, 2048),     # the K-tiled contract with a ragged last K tile
+])
+def test_k4_ref_matches_jax_interpret_at_kernel_corners(m, k, n, seed, block_k):
+    """K4's plain version against the JAX kernel in interpret mode at the
+    corners of the new kernel's tiling, as at the JAX tests' shapes:
+    rtol 1e-6 / atol 1e-4 (the interpreted kernel contracts an FMA on the
+    CPU), and bit-equal to the eager JAX chain."""
+    x, wq, sw, b = _case(m, k, n, seed)
+    want = np.asarray(JK.quant_w8a8_matmul(*map(jnp.asarray, (x, wq, sw, b)), block_k=block_k,
+                                           interpret=True))
+    got = K.quant_w8a8_matmul_ref(*_t(x, wq, sw, b))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-4)
+    np.testing.assert_array_equal(got.numpy(), _eager_chain(x, wq, sw, b))
+    assert torch.equal(K.quant_w8a8_matmul(*_t(x, wq, sw, b)), got)
+
+
+@pytest.mark.parametrize("m,k,n,seed", [
+    (37, 130, 200, 41),     # ragged M, K % 64 != 0 and K % 4 == 2, ragged N
+    (129, 304, 136, 42),
+    (9, 2050, 96, 43),      # past the resident limit, K % 4 == 2
+    (5, 4096, 64, 44),      # K8's largest K
+])
+def test_k8_ref_matches_jax_interpret_at_kernel_corners(m, k, n, seed):
+    x, wq, sw, b = _case(m, k, n, seed, int4=True)
+    packed = np.asarray(JQ.pack_int4(jnp.asarray(wq)))
+    want = np.asarray(JK.quant_w4a8_matmul(*map(jnp.asarray, (x, packed, sw, b)),
+                                           interpret=True))
+    got = K.quant_w4a8_matmul_ref(*_t(x, packed, sw, b))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-4)
+    np.testing.assert_array_equal(got.numpy(), _eager_chain(x, wq, sw, b))
+    assert torch.equal(K.quant_w4a8_matmul(*_t(x, packed, sw, b)), got)
