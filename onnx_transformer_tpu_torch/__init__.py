@@ -15,6 +15,12 @@ package.  It covers three serving paths of the IWSLT14 model:
   with the int8-cache attention kernel K3 (``fused_attn=True``) and the
   W8A8 matmul kernel K5 (W8A8 mode ``pallas``).
 
+Every model method and linear impl takes the reference's ``taps``/``inject``
+seam (``ops.layers.tap``), through which ``quant.calibrate`` records
+activation scales and ``inject.campaign`` runs fault-injection campaigns
+(bit flips in ``inject.bits``, sentence BLEU from ``evaluation.bleu``);
+under taps or inject the linears and attentions route around the kernels.
+
 K4 and K8 (the per-token quantize fused into K5's product, over int8 or
 packed-int4 weights) have no caller on these paths, as in the JAX package.
 All eight are CUDA kernels hand-written for Hopper; on CPU tensors each

@@ -4,9 +4,15 @@ Parameters are a nested structure of dicts and lists of tensors, laid out
 as the JAX package's pytree (linear weights stored (in, out)), so a JAX
 parameter tree converts leaf by leaf (``params.params_from_jax``).
 
-Every linear goes through the ``lin(name, x, w, b)`` seam under the
-reference module name; the W8A8 impl of ``quant/w8a8.py`` plugs in there.
-Inference only: no dropout, no taps, no fault injection.
+Every linear goes through the ``lin(name, x, w, b, taps, inject)`` seam
+under the reference module name; the W8A8 and W4A8 impls plug in there.
+The methods take the reference's ``rng`` (a ``torch.Generator`` whose
+draws the dropout sites take in call order), ``train``, ``taps`` and
+``inject`` (``ops.layers.tap``) where the reference's do, in its parameter
+order.  As in the JAX package, taps and inject route around the kernels:
+kernel K3 (``fused_attn``) runs only when neither is given and not
+training, the all-int8 attention and the cross-K/V producer
+``lin.linear_q8`` only when neither is given.
 
 The KV cache (``init_cache``, ``decode_step``) is a dict of per-layer dicts
 of tensors, as in the JAX package, but a step writes its K/V rows into the
@@ -16,8 +22,7 @@ that ``decode_step`` returns holds the same buffers it was given.
 
 from __future__ import annotations
 
-import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Optional
 
 import torch
@@ -39,17 +44,28 @@ class TransformerConfig:
     d_model: int = 512
     d_ff: int = 2048
     num_heads: int = 8
+    dropout: float = 0.3
     max_len: int = 5000
     quantize_attn_probs: bool = True
     pad_id: int = 2
     bos_id: int = 0
     eos_id: int = 1
+    dtype: Any = torch.float32
+    # Accepted for the reference's configurations: eager PyTorch has no
+    # lax.scan to gain from, so the layers run the same per-layer loop.
+    scan_layers: bool = False
+
+    def with_(self, **kw) -> "TransformerConfig":
+        return replace(self, **kw)
 
 
 def default_linear(name: str, x: torch.Tensor, w: torch.Tensor,
-                   b: Optional[torch.Tensor]) -> torch.Tensor:
-    """Plain fp linear."""
-    return L.linear(x, w, b)
+                   b: Optional[torch.Tensor], taps: L.TapDict = None,
+                   inject: L.InjectDict = None) -> torch.Tensor:
+    """Plain fp linear.  Taps the input under the module name (what
+    calibration records) and the output under ``name + ".out"``."""
+    x = L.tap(name, x, taps, inject)
+    return L.tap(name + ".out", L.linear(x, w, b), taps, inject)
 
 
 def _scalar_index(idx):
@@ -125,24 +141,20 @@ class Transformer:
 
     def init(self, seed: int = 0, device=None) -> Params:
         """Random parameters from ``seed``: Xavier-uniform linears and
-        embeddings, zero biases, unit LayerNorms.  The numbers differ from
-        the JAX package's ``init`` for the same seed."""
+        embeddings, zero biases, unit LayerNorms, in ``cfg.dtype``.  The
+        numbers differ from the JAX package's ``init`` for the same seed."""
         cfg = self.cfg
         dev = resolve_device(device)
+        dt = cfg.dtype
         gen = torch.Generator(device=dev).manual_seed(seed)
 
-        def xavier(d_in, d_out):
-            a = math.sqrt(6.0 / (d_in + d_out))
-            u = torch.rand((d_in, d_out), generator=gen, device=dev)
-            return u * (2 * a) - a
-
         def lin(d_in, d_out):
-            return {"w": xavier(d_in, d_out),
-                    "b": torch.zeros(d_out, device=dev)}
+            return {"w": L.xavier_uniform(gen, (d_in, d_out), dt),
+                    "b": torch.zeros(d_out, dtype=dt, device=dev)}
 
         def ln():
-            return {"scale": torch.ones(cfg.d_model, device=dev),
-                    "bias": torch.zeros(cfg.d_model, device=dev)}
+            return {"scale": torch.ones(cfg.d_model, dtype=dt, device=dev),
+                    "bias": torch.zeros(cfg.d_model, dtype=dt, device=dev)}
 
         def attn():
             return {k: lin(cfg.d_model, cfg.d_model) for k in ("q", "k", "v", "o")}
@@ -156,23 +168,28 @@ class Transformer:
                        "ln0": ln(), "ln1": ln(), "ln2": ln()}
                       for _ in range(cfg.num_layers)]
         return {
-            "src_embed": {"lut": xavier(cfg.src_vocab_size, cfg.d_model)},
-            "tgt_embed": {"lut": xavier(cfg.tgt_vocab_size, cfg.d_model)},
+            "src_embed": {"lut": L.xavier_uniform(gen, (cfg.src_vocab_size, cfg.d_model), dt)},
+            "tgt_embed": {"lut": L.xavier_uniform(gen, (cfg.tgt_vocab_size, cfg.d_model), dt)},
             "encoder": {"layers": enc_layers, "ln": ln()},
             "decoder": {"layers": dec_layers, "ln": ln()},
             "generator": lin(cfg.d_model, cfg.tgt_vocab_size),
         }
 
-    def embed_src(self, params: Params, src: torch.Tensor) -> torch.Tensor:
+    def _drop(self, x, rng: Optional[torch.Generator], train: bool) -> torch.Tensor:
+        return L.dropout(x, self.cfg.dropout, rng, train)
+
+    def embed_src(self, params: Params, src: torch.Tensor, rng=None,
+                  train: bool = False) -> torch.Tensor:
         x = L.embed(src, params["src_embed"]["lut"])
-        return L.positional_encoding(x, 0, self.cfg.max_len)
+        return self._drop(L.positional_encoding(x, 0, self.cfg.max_len), rng, train)
 
-    def embed_tgt(self, params: Params, tgt: torch.Tensor, offset=0) -> torch.Tensor:
+    def embed_tgt(self, params: Params, tgt: torch.Tensor, offset=0, rng=None,
+                  train: bool = False) -> torch.Tensor:
         x = L.embed(tgt, params["tgt_embed"]["lut"])
-        return L.positional_encoding(x, offset, self.cfg.max_len)
+        return self._drop(L.positional_encoding(x, offset, self.cfg.max_len), rng, train)
 
-    def _mha(self, p: Params, name: str, q_in, k_in, v_in, mask, lin: LinearImpl,
-             self_cache: Optional[dict] = None, cache_index=None,
+    def _mha(self, p: Params, name: str, q_in, k_in, v_in, mask, rng, train, taps,
+             inject, lin: LinearImpl, self_cache: Optional[dict] = None, cache_index=None,
              kv_precomputed=None, fused_attn: bool = False,
              cache_tm: bool = False) -> torch.Tensor:
         """Multi-headed attention.
@@ -183,30 +200,32 @@ class Transformer:
         step's k/v land at ``cache_index``.  ``kv_precomputed``: the cross
         K/V, a (k, v) pair [B, H, S, dk] or the int8 dict {'kq', 'ks', 'vq',
         'vs'}.  ``fused_attn``: a single-query step over an int8 cache runs
-        kernel K3 (``decode_attention_int8``)."""
+        kernel K3 (``decode_attention_int8``) when no taps or inject are
+        given and not training; otherwise the tapped attention runs."""
         cfg = self.cfg
         h = cfg.num_heads
         quant = cfg.quantize_attn_probs
-        q_full = lin(f"{name}.linears.0", q_in, p["q"]["w"], p["q"]["b"])
+        seams = taps is not None or inject is not None
+        q_full = lin(f"{name}.linears.0", q_in, p["q"]["w"], p["q"]["b"], taps, inject)
         q = L.split_heads(q_full, h)
-        single_step = q.shape[2] == 1
+        single_step = q.shape[2] == 1 and not train
 
         def out_proj(ctx):
-            return lin(f"{name}.linears.3", ctx, p["o"]["w"], p["o"]["b"])
+            return lin(f"{name}.linears.3", ctx, p["o"]["w"], p["o"]["b"], taps, inject)
 
         def int8_attention(kq, ks, vq, vs):
             """One query step over an int8 cache."""
-            if fused_attn:
+            if fused_attn and not seams:
                 # the merged q and the merged-head cache go to K3 as they are
                 ctx = decode_attention_int8(q_full[:, 0, :], kq, ks[..., 0], vq, vs[..., 0],
                                             mask[:, 0, 0, :], num_heads=h, quantize=quant)
                 return out_proj(ctx[:, None, :])
-            if getattr(lin, "quantized_output_grid", False):
+            if not seams and getattr(lin, "quantized_output_grid", False):
                 # q is on the per-token int8 grid: all-int8-operand attention
                 return out_proj(L.int8_cache_attention_qdot(q_full, kq, ks, vq, vs, mask,
                                                             quant, h))
-            return out_proj(L.merge_heads(L.int8_cache_attention(q, kq, ks, vq, vs, mask,
-                                                                 quant)))
+            return out_proj(L.merge_heads(L.int8_cache_attention(
+                q, kq, ks, vq, vs, mask, quant, name=name, taps=taps, inject=inject)))
 
         def dequantized(kq, ks, vq, vs):
             return (L.split_heads(kq.float() * ks, h), L.split_heads(vq.float() * vs, h))
@@ -220,8 +239,8 @@ class Transformer:
             else:
                 k, v = kv_precomputed
         else:
-            kfull = lin(f"{name}.linears.1", k_in, p["k"]["w"], p["k"]["b"])
-            vfull = lin(f"{name}.linears.2", v_in, p["v"]["w"], p["v"]["b"])
+            kfull = lin(f"{name}.linears.1", k_in, p["k"]["w"], p["k"]["b"], taps, inject)
+            vfull = lin(f"{name}.linears.2", v_in, p["v"]["w"], p["v"]["b"], taps, inject)
             if self_cache is not None and "k_scale" in self_cache:
                 # int8 cache of merged-head rows quantized per token; under
                 # W8A8, k and v already sit on that grid, so this is lossless
@@ -247,58 +266,69 @@ class Transformer:
                 if self_cache is not None:
                     k = _cache_update(self_cache["k"], k, cache_index)
                     v = _cache_update(self_cache["v"], v, cache_index)
-        ctx = L.scaled_dot_attention(q, k, v, mask, quant)
+        ctx = L.scaled_dot_attention(q, k, v, mask, quant, drop_rate=cfg.dropout,
+                                     rng=rng, train=train,
+                                     name=name, taps=taps, inject=inject)
         return out_proj(L.merge_heads(ctx))
 
-    def _ffn(self, p: Params, name: str, x, lin: LinearImpl) -> torch.Tensor:
-        """w_2(relu(w_1(x)))."""
-        hcur = torch.relu(lin(f"{name}.w_1", x, p["w1"]["w"], p["w1"]["b"]))
-        return lin(f"{name}.w_2", hcur, p["w2"]["w"], p["w2"]["b"])
+    def _ffn(self, p: Params, name: str, x, rng, train, taps, inject,
+             lin: LinearImpl) -> torch.Tensor:
+        """w_2(dropout(relu(w_1(x))))."""
+        hcur = torch.relu(lin(f"{name}.w_1", x, p["w1"]["w"], p["w1"]["b"], taps, inject))
+        hcur = self._drop(hcur, rng, train)
+        return lin(f"{name}.w_2", hcur, p["w2"]["w"], p["w2"]["b"], taps, inject)
 
-    @staticmethod
-    def _sublayer(x, ln_p, fn) -> torch.Tensor:
-        """Pre-norm residual: x + fn(norm(x))."""
-        return x + fn(L.layer_norm(x, ln_p["scale"], ln_p["bias"]))
+    def _sublayer(self, x, ln_p, fn, rng, train) -> torch.Tensor:
+        """Pre-norm residual: x + dropout(fn(norm(x)))."""
+        return x + self._drop(fn(L.layer_norm(x, ln_p["scale"], ln_p["bias"])), rng, train)
 
-    def _encoder_layer(self, lp, x, mask, lin: LinearImpl, nm: str) -> torch.Tensor:
+    def _encoder_layer(self, lp, x, mask, rng, train, taps, inject, lin: LinearImpl,
+                       nm: str) -> torch.Tensor:
         x = self._sublayer(x, lp["ln0"], lambda h: self._mha(
-            lp["self_attn"], f"{nm}.self_attn", h, h, h, mask, lin))
+            lp["self_attn"], f"{nm}.self_attn", h, h, h, mask, rng, train, taps, inject,
+            lin), rng, train)
         return self._sublayer(x, lp["ln1"], lambda h: self._ffn(
-            lp["ffn"], f"{nm}.feed_forward", h, lin))
+            lp["ffn"], f"{nm}.feed_forward", h, rng, train, taps, inject, lin), rng, train)
 
-    def _decoder_layer(self, lp, x, tmask, smask, lin: LinearImpl, nm: str,
-                       memory=None, layer_cache=None, cache_index=None, kv_cross=None,
-                       fused_attn: bool = False, cache_tm: bool = False) -> torch.Tensor:
+    def _decoder_layer(self, lp, x, memory, tmask, smask, rng, train, taps, inject,
+                       lin: LinearImpl, nm: str, layer_cache=None, cache_index=None,
+                       kv_cross=None, fused_attn: bool = False,
+                       cache_tm: bool = False) -> torch.Tensor:
         x = self._sublayer(x, lp["ln0"], lambda h: self._mha(
-            lp["self_attn"], f"{nm}.self_attn", h, h, h, tmask, lin,
-            self_cache=layer_cache, cache_index=cache_index, fused_attn=fused_attn,
-            cache_tm=cache_tm))
+            lp["self_attn"], f"{nm}.self_attn", h, h, h, tmask, rng, train, taps, inject,
+            lin, self_cache=layer_cache, cache_index=cache_index, fused_attn=fused_attn,
+            cache_tm=cache_tm), rng, train)
         x = self._sublayer(x, lp["ln1"], lambda h: self._mha(
-            lp["src_attn"], f"{nm}.src_attn", h, memory, memory, smask, lin,
-            kv_precomputed=kv_cross, fused_attn=fused_attn))
+            lp["src_attn"], f"{nm}.src_attn", h, memory, memory, smask, rng, train, taps,
+            inject, lin, kv_precomputed=kv_cross, fused_attn=fused_attn), rng, train)
         return self._sublayer(x, lp["ln2"], lambda h: self._ffn(
-            lp["ffn"], f"{nm}.feed_forward", h, lin))
+            lp["ffn"], f"{nm}.feed_forward", h, rng, train, taps, inject, lin), rng, train)
 
     def encode(self, params: Params, src: torch.Tensor, src_mask: torch.Tensor,
+               rng: Optional[torch.Generator] = None, train: bool = False,
+               taps: L.TapDict = None, inject: L.InjectDict = None,
                lin: LinearImpl = default_linear) -> torch.Tensor:
         """src [B, S] ids, src_mask [B, 1, S] -> memory [B, S, D]."""
-        x = self.embed_src(params, src)
+        x = self.embed_src(params, src, rng, train)
         mask = src_mask[:, None, :, :] if src_mask is not None else None
         for i, lp in enumerate(params["encoder"]["layers"]):
-            x = self._encoder_layer(lp, x, mask, lin, f"encoder.layers.{i}")
+            x = self._encoder_layer(lp, x, mask, rng, train, taps, inject, lin,
+                                    f"encoder.layers.{i}")
         ln_f = params["encoder"]["ln"]
         return L.layer_norm(x, ln_f["scale"], ln_f["bias"])
 
     def cross_kv(self, params: Params, memory: torch.Tensor,
-                 lin: LinearImpl = default_linear,
-                 cache_dtype: str = "fp32") -> list:
+                 lin: LinearImpl = default_linear, taps: L.TapDict = None,
+                 inject: L.InjectDict = None, cache_dtype: str = "fp32") -> list:
         """Cross-attention K/V projections of the encoder memory, per decoder
         layer.  With ``cache_dtype="int8"`` each is int8 rows [B, S, D] plus
-        per-token scales [B, S, 1]; a fused-mode W8A8 impl produces those
-        straight from its kernel through ``lin.linear_q8``."""
+        per-token scales [B, S, 1]; without taps and inject, a fused-mode
+        W8A8 impl produces those straight from its kernel through
+        ``lin.linear_q8``."""
         int8 = cache_dtype == "int8"
         h = self.cfg.num_heads
-        q8 = getattr(lin, "linear_q8", None) if int8 else None
+        q8 = (getattr(lin, "linear_q8", None)
+              if int8 and taps is None and inject is None else None)
         layers = []
         for i, lp in enumerate(params["decoder"]["layers"]):
             nm = f"decoder.layers.{i}.src_attn"
@@ -310,8 +340,8 @@ class Transformer:
                     layers.append({"cross_k": rk[0], "cross_v": rv[0],
                                    "cross_k_scale": rk[1], "cross_v_scale": rv[1]})
                     continue
-            ckf = lin(f"{nm}.linears.1", memory, ap["k"]["w"], ap["k"]["b"])
-            cvf = lin(f"{nm}.linears.2", memory, ap["v"]["w"], ap["v"]["b"])
+            ckf = lin(f"{nm}.linears.1", memory, ap["k"]["w"], ap["k"]["b"], taps, inject)
+            cvf = lin(f"{nm}.linears.2", memory, ap["v"]["w"], ap["v"]["b"], taps, inject)
             if int8:
                 ckq, cks = quantize_act_per_token(ckf)
                 cvq, cvs = quantize_act_per_token(cvf)
@@ -322,8 +352,10 @@ class Transformer:
                                "cross_v": L.split_heads(cvf, h)})
         return layers
 
-    def decode(self, params: Params, memory, src_mask, tgt_in: torch.Tensor,
-               tgt_mask, lin: LinearImpl = default_linear, cache: Optional[dict] = None,
+    def decode(self, params: Params, memory, src_mask, tgt_in: torch.Tensor, tgt_mask,
+               rng: Optional[torch.Generator] = None, train: bool = False,
+               taps: L.TapDict = None, inject: L.InjectDict = None,
+               lin: LinearImpl = default_linear, cache: Optional[dict] = None,
                cache_index=None, fused_attn: bool = False, embed_offset=None,
                cache_time_major: bool = False) -> torch.Tensor:
         """Teacher-forced decode, or incremental when ``cache`` is given.
@@ -336,7 +368,7 @@ class Transformer:
         offset = cache_index if cache is not None else 0
         if embed_offset is not None:
             offset = embed_offset
-        x = self.embed_tgt(params, tgt_in, offset)
+        x = self.embed_tgt(params, tgt_in, offset, rng, train)
         tmask = tgt_mask[:, None, :, :] if tgt_mask is not None else None
         smask = src_mask[:, None, :, :] if src_mask is not None else None
         for i, lp in enumerate(params["decoder"]["layers"]):
@@ -348,33 +380,40 @@ class Transformer:
                                 "vq": layer_cache["cross_v"], "vs": layer_cache["cross_v_scale"]}
                 elif "cross_k" in layer_cache:
                     kv_cross = (layer_cache["cross_k"], layer_cache["cross_v"])
-            x = self._decoder_layer(lp, x, tmask, smask, lin, f"decoder.layers.{i}",
-                                    memory=memory, layer_cache=layer_cache,
+            x = self._decoder_layer(lp, x, memory, tmask, smask, rng, train, taps, inject,
+                                    lin, f"decoder.layers.{i}", layer_cache=layer_cache,
                                     cache_index=cache_index, kv_cross=kv_cross,
                                     fused_attn=fused_attn, cache_tm=cache_time_major)
         ln_f = params["decoder"]["ln"]
         return L.layer_norm(x, ln_f["scale"], ln_f["bias"])
 
-    def generate(self, params: Params, x: torch.Tensor, lin: LinearImpl = default_linear,
+    def generate(self, params: Params, x: torch.Tensor, taps: L.TapDict = None,
+                 inject: L.InjectDict = None, lin: LinearImpl = default_linear,
                  log_probs: bool = True) -> torch.Tensor:
         """log_softmax(proj(x)), or the raw logits (argmax-equivalent)."""
         g = params["generator"]
-        y = lin("generator.proj", x, g["w"], g["b"])
+        y = lin("generator.proj", x, g["w"], g["b"], taps, inject)
         return L.log_softmax(y) if log_probs else y
 
     def forward(self, params: Params, src, tgt_in, src_mask, tgt_mask,
+                rng: Optional[torch.Generator] = None, train: bool = False,
+                taps: L.TapDict = None, inject: L.InjectDict = None,
                 lin: LinearImpl = default_linear) -> torch.Tensor:
-        """Hidden states of the teacher-forced decoder, not logits."""
-        memory = self.encode(params, src, src_mask, lin=lin)
-        return self.decode(params, memory, src_mask, tgt_in, tgt_mask, lin=lin)
+        """Hidden states of the teacher-forced decoder, not logits.  The
+        encoder's dropout sites draw from ``rng`` first, then the decoder's."""
+        memory = self.encode(params, src, src_mask, rng, train, taps, inject, lin)
+        return self.decode(params, memory, src_mask, tgt_in, tgt_mask, rng, train, taps,
+                           inject, lin)
 
     def forward_logits(self, params: Params, src, tgt_in, src_mask, tgt_mask,
-                       lin: LinearImpl = default_linear) -> torch.Tensor:
-        h = self.forward(params, src, tgt_in, src_mask, tgt_mask, lin=lin)
-        return self.generate(params, h, lin=lin)
+                       **kw) -> torch.Tensor:
+        h = self.forward(params, src, tgt_in, src_mask, tgt_mask, **kw)
+        return self.generate(params, h, taps=kw.get("taps"), inject=kw.get("inject"),
+                             lin=kw.get("lin", default_linear))
 
     def init_cache(self, params: Params, memory: torch.Tensor, max_len: int,
-                   lin: LinearImpl = default_linear, cache_dtype: str = "fp32",
+                   lin: LinearImpl = default_linear, taps: L.TapDict = None,
+                   inject: L.InjectDict = None, cache_dtype: str = "fp32",
                    time_major: bool = False) -> dict:
         """Empty self-attention K/V buffers plus the cross-attention
         projections of the encoder memory, per decoder layer.  ``int8``:
@@ -384,7 +423,8 @@ class Transformer:
         b, dev = memory.shape[0], memory.device
         h, dk = cfg.num_heads, cfg.d_model // cfg.num_heads
         layers = []
-        for cross in self.cross_kv(params, memory, lin=lin, cache_dtype=cache_dtype):
+        for cross in self.cross_kv(params, memory, lin=lin, taps=taps, inject=inject,
+                                   cache_dtype=cache_dtype):
             entry = dict(cross)
             if cache_dtype == "int8":
                 lead = (max_len, b) if time_major else (b, max_len)
@@ -400,7 +440,8 @@ class Transformer:
         return {"layers": layers}
 
     def decode_step(self, params: Params, cache: dict, tok: torch.Tensor, index,
-                    src_mask, lin: LinearImpl = default_linear, fused_attn: bool = False,
+                    src_mask, lin: LinearImpl = default_linear, taps: L.TapDict = None,
+                    inject: L.InjectDict = None, fused_attn: bool = False,
                     log_probs: bool = True, ring_index=None,
                     time_major: bool = False) -> tuple[torch.Tensor, dict]:
         """One KV-cached decoder step -> (next-token log-probs [B, V], cache).
@@ -435,7 +476,9 @@ class Transformer:
             step_mask = (pos <= idx)[None, None, :].expand(b, 1, max_len)
             write_index, embed_offset = idx, None
         cache = {"layers": [dict(lc) for lc in cache["layers"]]}
-        hid = self.decode(params, None, src_mask, tok, step_mask, lin=lin, cache=cache,
-                          cache_index=write_index, fused_attn=fused_attn,
-                          embed_offset=embed_offset, cache_time_major=time_major)
-        return self.generate(params, hid[:, -1], lin=lin, log_probs=log_probs), cache
+        hid = self.decode(params, None, src_mask, tok, step_mask, taps=taps, inject=inject,
+                          lin=lin, cache=cache, cache_index=write_index,
+                          fused_attn=fused_attn, embed_offset=embed_offset,
+                          cache_time_major=time_major)
+        return self.generate(params, hid[:, -1], taps=taps, inject=inject, lin=lin,
+                             log_probs=log_probs), cache

@@ -13,12 +13,20 @@ The int8-cache attentions (``int8_cache_attention*``) attend one query step
 over the merged-head int8 K/V cache [B, T, D] with per-token scales, without
 dequantizing the cache into an f32 [B, T, D] tensor first.
 
-There is no dropout and no tap/inject seam here yet; gradients flow as in
-the JAX package (straight through the probability rounding).
+Tap/inject seam: an intermediate routed through :func:`tap` may be rewritten
+by a function of an ``inject`` dict (fault injection) and then recorded into
+a ``taps`` dict (calibration, observation), both keyed by the reference's
+module names.  With both ``None`` the tensor passes untouched.
+
+Dropout draws its masks from a ``torch.Generator`` (the JAX package draws
+from ``jax.random``, so the masks differ; eval and rate 0 are the identity
+in both).  Gradients flow as in the JAX package (straight through the
+probability rounding).
 """
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 from typing import Optional
 
@@ -27,7 +35,20 @@ import torch
 
 from onnx_transformer_tpu_torch.quant.core import ste_round, true_div
 
+TapDict = Optional[dict]
+InjectDict = Optional[dict]
+
 NEG_INF = -1e9
+
+
+def tap(name: str, x: torch.Tensor, taps: TapDict = None, inject: InjectDict = None):
+    """Route an intermediate through the observe/inject seam: rewrite it with
+    ``inject[name]`` where that exists, then record it as ``taps[name]``."""
+    if inject is not None and name in inject:
+        x = inject[name](x)
+    if taps is not None:
+        taps[name] = x
+    return x
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -87,6 +108,18 @@ def positional_encoding(x: torch.Tensor, offset=0, max_len: int = 5000) -> torch
     return x + pe[offset:offset + t]
 
 
+def dropout(x: torch.Tensor, rate: float, rng: Optional[torch.Generator],
+            train: bool) -> torch.Tensor:
+    """Inverted dropout: ``where(keep_mask, x / keep, 0)`` with keep = 1 - rate
+    and the mask drawn from ``rng`` (a generator on x's device).  The
+    identity when not training, at rate 0, or without a generator."""
+    if not train or rate == 0.0 or rng is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    return torch.where(mask, true_div(x, keep), 0.0)
+
+
 def quantize_probs(p: torch.Tensor) -> torch.Tensor:
     """Attention probabilities snapped to the 1/127 grid, with a
     straight-through gradient as in the JAX package (so that a QAT forward
@@ -107,36 +140,46 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def attention_probs(scores: torch.Tensor, mask: Optional[torch.Tensor],
-                    quantize: bool) -> torch.Tensor:
-    """softmax(mask_fill(scores, -1e9)) [+ 1/127 fake-quant]."""
+                    quantize: bool, drop_rate: float = 0.0,
+                    rng: Optional[torch.Generator] = None,
+                    train: bool = False) -> torch.Tensor:
+    """softmax(mask_fill(scores, -1e9)) [+ dropout] [+ 1/127 fake-quant]."""
     if mask is not None:
         scores = scores.masked_fill(~mask, NEG_INF)
     p = torch.softmax(scores, dim=-1)
+    p = dropout(p, drop_rate, rng, train)
     if quantize:
         p = quantize_probs(p)
     return p
 
 
 def scaled_dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         mask: Optional[torch.Tensor],
-                         quantize: bool = True) -> torch.Tensor:
-    """q, k, v: [B, H, T, dk]; mask broadcastable to [B, H, Tq, Tk]."""
+                         mask: Optional[torch.Tensor], quantize: bool = True,
+                         drop_rate: float = 0.0, rng: Optional[torch.Generator] = None,
+                         train: bool = False, name: str = "attn", taps: TapDict = None,
+                         inject: InjectDict = None) -> torch.Tensor:
+    """q, k, v: [B, H, T, dk]; mask broadcastable to [B, H, Tq, Tk].  Taps
+    ``{name}.scores``, ``{name}.probs`` and ``{name}.context``."""
     d_k = q.shape[-1]
     scores = true_div(torch.matmul(q, k.transpose(-1, -2)),
                       float(np.sqrt(d_k).astype(np.float32)))
-    p = attention_probs(scores, mask, quantize)
-    return torch.matmul(p, v)
+    scores = tap(f"{name}.scores", scores, taps, inject)
+    p = attention_probs(scores, mask, quantize, drop_rate, rng, train)
+    p = tap(f"{name}.probs", p, taps, inject)
+    return tap(f"{name}.context", torch.matmul(p, v), taps, inject)
 
 
 def int8_cache_attention(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                          vq: torch.Tensor, vs: torch.Tensor,
-                         mask: Optional[torch.Tensor], quantize: bool) -> torch.Tensor:
+                         mask: Optional[torch.Tensor], quantize: bool, name: str = "attn",
+                         taps: TapDict = None, inject: InjectDict = None) -> torch.Tensor:
     """Scale-after-dot attention of q f32 [B, H, 1, dk] over the int8 cache
     kq/vq [B, T, D] with scales ks/vs [B, T, 1]; mask [B, 1, 1, T].
 
     The per-token scale is constant along dk, so it comes out of both dots:
     ``scores[t] = (q . kq[t]) * ks[t] / sqrt(dk)`` and
-    ``ctx = sum_t (p[t] * vs[t]) * vq[t]``.  Returns [B, H, 1, dk]."""
+    ``ctx = sum_t (p[t] * vs[t]) * vq[t]``.  Returns [B, H, 1, dk].  Taps as
+    :func:`scaled_dot_attention`."""
     b, t, d = kq.shape
     h = q.shape[1]
     dk = d // h
@@ -145,9 +188,10 @@ def int8_cache_attention(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     scores = torch.einsum("bhqd,bthd->bhqt", q, kr)
     scores = scores * true_div(ks[:, :, 0][:, None, None, :],
                                float(np.sqrt(dk).astype(np.float32)))
-    p = attention_probs(scores, mask, quantize)
+    scores = tap(f"{name}.scores", scores, taps, inject)
+    p = tap(f"{name}.probs", attention_probs(scores, mask, quantize), taps, inject)
     pv = p * vs[:, :, 0][:, None, None, :]
-    return torch.einsum("bhqt,bthd->bhqd", pv, vr)
+    return tap(f"{name}.context", torch.einsum("bhqt,bthd->bhqd", pv, vr), taps, inject)
 
 
 def int8_cache_attention_qdot(q_full: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
@@ -199,3 +243,13 @@ def make_tgt_mask(tgt_in: torch.Tensor, pad: int = 2) -> torch.Tensor:
 
 def log_softmax(x: torch.Tensor) -> torch.Tensor:
     return torch.log_softmax(x, dim=-1)
+
+
+def xavier_uniform(rng: torch.Generator, shape: tuple,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Glorot uniform U(-a, a), a = sqrt(6 / (fan_in + fan_out)), drawn from
+    ``rng`` on its device; the two fans are the first two dims (their sum
+    does not depend on which is which)."""
+    a = math.sqrt(6.0 / (shape[0] + shape[1]))
+    u = torch.rand(shape, generator=rng, device=rng.device, dtype=dtype)
+    return u * (2 * a) - a

@@ -43,10 +43,9 @@ def qmax_for(bits: int) -> int:
     return 2 ** (bits - 1) - 1
 
 
-def absmax_scale(x: torch.Tensor, dim: int, bits: int = 8,
-                 keepdim: bool = True) -> torch.Tensor:
-    """clamp(absmax over ``dim``, 1e-5) / qmax."""
-    s = x.abs().amax(dim=dim, keepdim=keepdim)
+def absmax_scale(x: torch.Tensor, axis, bits: int = 8, keepdims: bool = True) -> torch.Tensor:
+    """clamp(absmax over ``axis``, 1e-5) / qmax."""
+    s = x.abs().amax(dim=axis, keepdim=keepdims)
     return true_div(s.clamp_min(SCALE_FLOOR), qmax_for(bits))
 
 
@@ -67,7 +66,7 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 def quantize_weight_per_channel(w: torch.Tensor, bits: int = 8):
     """w stored (in, out); per-out-channel scales.
     Returns (int8 [in, out], scales [out])."""
-    scale = absmax_scale(w, dim=0, bits=bits, keepdim=False)
+    scale = absmax_scale(w, axis=0, bits=bits, keepdims=False)
     return quantize(w, scale[None, :], bits), scale
 
 
@@ -84,7 +83,7 @@ def fake_quant_weight_per_channel(w: torch.Tensor, bits: int = 8) -> torch.Tenso
 
 def act_scale_per_token(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
     """[..., d] -> [..., 1] scales."""
-    return absmax_scale(x, dim=-1, bits=bits, keepdim=True)
+    return absmax_scale(x, axis=-1, bits=bits, keepdims=True)
 
 
 def quantize_act_per_token(x: torch.Tensor, bits: int = 8):

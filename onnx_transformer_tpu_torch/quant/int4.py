@@ -13,6 +13,10 @@
   (``quant_w4a8_matmul_q8``); every other call unpacks the weights and runs
   the int8 chain.
 
+Both impls take the reference's ``taps`` and ``inject`` and tap its sites
+(input, ``.x_q``, ``.w_q``, ``.out``); with either given, the W4A8 impl runs
+the int8 chain instead of K6.
+
 The JAX package's ``lin.rebind`` hands payloads through a jit boundary; the
 port runs eagerly and has no counterpart.
 """
@@ -40,15 +44,17 @@ def make_qat_linear_impl(w_bits: int = 4, a_bits: int = 8) -> Callable:
     The generator gets weight-only fake-quant; linears other than the
     attention projections and the FFN stay fp."""
 
-    def lin(name: str, x, w, b):
+    def lin(name: str, x, w, b, taps: L.TapDict = None, inject: L.InjectDict = None):
         if name == "generator.proj":
-            wq = Q.fake_quant_ste(w, Q.absmax_scale(w, dim=0, bits=w_bits), w_bits)
-            return L.linear(x, wq, b)
+            wq = Q.fake_quant_ste(w, Q.absmax_scale(w, axis=0, bits=w_bits), w_bits)
+            return L.tap(name + ".out", L.linear(L.tap(name, x, taps, inject), wq, b),
+                         taps, inject)
         if ".linears." not in name and "feed_forward" not in name:
-            return default_linear(name, x, w, b)
+            return default_linear(name, x, w, b, taps, inject)
+        x = L.tap(name, x, taps, inject)
         xq = Q.fake_quant_ste(x, Q.act_scale_per_token(x, a_bits), a_bits)
-        wq = Q.fake_quant_ste(w, Q.absmax_scale(w, dim=0, bits=w_bits), w_bits)
-        y = L.linear(xq, wq, b)
+        wq = Q.fake_quant_ste(w, Q.absmax_scale(w, axis=0, bits=w_bits), w_bits)
+        y = L.tap(name + ".out", L.linear(xq, wq, b), taps, inject)
         if is_quantized_output(name):
             y = Q.fake_quant_ste(y, Q.act_scale_per_token(y, a_bits), a_bits)
         return y
@@ -62,7 +68,7 @@ def quantize_model_params_int4(model: Transformer, params: dict) -> dict:
     for name in quantized_linear_names(model.cfg.num_layers):
         leaf = _param_leaf(params, name)
         w = leaf["w"].float()
-        sw = Q.absmax_scale(w, dim=0, bits=4, keepdim=False)
+        sw = Q.absmax_scale(w, axis=0, bits=4, keepdims=False)
         wq = Q.quantize(w, sw[None, :], bits=4, clip=True)
         payloads[name] = {"wq_packed": Q.pack_int4(wq).contiguous(), "sw": sw,
                           "b": leaf["b"].float()}
@@ -73,12 +79,13 @@ def _tokens(x: torch.Tensor) -> int:
     return x[..., 0].numel()
 
 
-def _k6_ok(p: dict, name: str, x: torch.Tensor, a_bits: int) -> bool:
-    """K6 takes the q/k/v projections of big calls.  The JAX package admits
-    K <= 4096 here, which its kernel then refuses above 2048; the port gates
-    on the kernel's own K, N <= 2048."""
+def _k6_ok(p: dict, name: str, x: torch.Tensor, a_bits: int, taps: L.TapDict = None,
+           inject: L.InjectDict = None) -> bool:
+    """K6 takes the q/k/v projections of big calls without taps or inject.
+    The JAX package admits K <= 4096 here, which its kernel then refuses
+    above 2048; the port gates on the kernel's own K, N <= 2048."""
     n = p["wq_packed"].shape[-1]
-    return (a_bits == 8 and is_quantized_output(name)
+    return (a_bits == 8 and taps is None and inject is None and is_quantized_output(name)
             and _tokens(x) >= W8.FUSED_MIN_TOKENS
             and x.shape[-1] <= K.MAX_KN and n <= K.MAX_KN and n % min(512, n) == 0)
 
@@ -87,17 +94,20 @@ def make_w4a8_linear_impl(payloads: dict, a_bits: int = 8, fused: bool = True) -
     """LinearImpl over packed-int4 weights and ``a_bits`` activations.
     ``FUSED_MIN_TOKENS`` is read from ``quant.w8a8`` at call time."""
 
-    def lin(name: str, x, w, b):
+    def lin(name: str, x, w, b, taps: L.TapDict = None, inject: L.InjectDict = None):
         p = payloads.get(name)
         if p is None:
-            return default_linear(name, x, w, b)
-        if fused and _k6_ok(p, name, x, a_bits):
+            return default_linear(name, x, w, b, taps, inject)
+        if fused and _k6_ok(p, name, x, a_bits, taps, inject):
             return K.quant_w4a8_matmul_qout(x, p["wq_packed"], p["sw"], p["b"])
+        x = L.tap(name, x, taps, inject)
         sx = Q.act_scale_per_token(x, a_bits)
-        xq = Q.quantize(x, sx, a_bits)
-        wq = Q.unpack_int4(p["wq_packed"])   # int4 values in int8 [in, out]
+        xq = L.tap(f"{name}.x_q", Q.quantize(x, sx, a_bits), taps, inject)
+        # int4 values in int8 [in, out]
+        wq = L.tap(f"{name}.w_q", Q.unpack_int4(p["wq_packed"]), taps, inject)
         y = K.w8a8_matmul_ref(xq.reshape(-1, xq.shape[-1]), sx.reshape(-1), wq, p["sw"],
                               p["b"]).reshape(*x.shape[:-1], -1)
+        y = L.tap(f"{name}.out", y, taps, inject)
         if is_quantized_output(name):
             y = Q.fake_quant_act_per_token(y, a_bits)
         return y

@@ -5,8 +5,10 @@ Per LayerNorm -> linears pattern, with alpha = 0.5:
 s_j = clamp(act_j^a / w_j^(1-a), 1e-5) where
 w_j = clamp(max over the fcs and their outputs of |W[j, out]|, 1e-5); the
 LN scale and bias are divided by s and each fc's in-features multiplied by s.
-The decoder's cross-attention migrates only into q, the one projection that
-consumes the smoothed LN output (the JAX package's default).
+By default the decoder's cross-attention migrates only into q, the one
+projection that consumes the smoothed LN output; ``faithful_cross_attn``
+migrates into its k and v too, as the reference model's SmoothQuant does
+(their input, the encoder memory, never gets the inverse scaling).
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ def _copy_tree(node):
 
 
 def smooth_params(params: dict, act_scales: Mapping[str, np.ndarray],
-                  alpha: float = 0.5) -> dict:
+                  alpha: float = 0.5, faithful_cross_attn: bool = False) -> dict:
     """SmoothQuant-migrate a Transformer parameter tree into a new tree (the
     input and its tensors are untouched)."""
     params = _copy_tree(params)
@@ -62,11 +64,12 @@ def smooth_params(params: dict, act_scales: Mapping[str, np.ndarray],
                           f"{nm}.self_attn.linears.0")
         lp["ln1"] = apply(lp["ln1"], lp["ffn"], ["w1"], f"{nm}.feed_forward.w_1")
 
+    cross_keys = ["q", "k", "v"] if faithful_cross_attn else ["q"]
     for i, lp in enumerate(params["decoder"]["layers"]):
         nm = f"decoder.layers.{i}"
         lp["ln0"] = apply(lp["ln0"], lp["self_attn"], ["q", "k", "v"],
                           f"{nm}.self_attn.linears.0")
-        lp["ln1"] = apply(lp["ln1"], lp["src_attn"], ["q"],
+        lp["ln1"] = apply(lp["ln1"], lp["src_attn"], cross_keys,
                           f"{nm}.src_attn.linears.0")
         lp["ln2"] = apply(lp["ln2"], lp["ffn"], ["w1"], f"{nm}.feed_forward.w_1")
     return params

@@ -14,6 +14,12 @@ operands; ``fused`` sends the q/k/v projections of at least
 kernel K2 as ``lin.linear_q8``.  In every mode q/k/v fake-quantize their
 output per token.
 
+Tap sites, as in the JAX package: the input under the module name, the
+quantized operands under ``.x_q`` and ``.w_q`` (so bit faults hit the integer
+domain), the output under ``.out`` and, for q/k/v, the fake-quantized output
+under ``.out_q``.  With taps or inject given, mode ``fused`` runs the int8
+chain instead of K1, which has no seams.
+
 ``bits`` sets the width of the weights and activations (qmax 2^(bits-1)-1,
 stored in int8).  The kernels of mode ``fused`` exist for 8 bits only, so
 with any other width that mode runs the int8 chain; its ``linear_q8`` then
@@ -28,6 +34,7 @@ from typing import Callable, Literal, Optional, get_args
 import torch
 
 from onnx_transformer_tpu_torch.models.transformer import Transformer, default_linear
+from onnx_transformer_tpu_torch.ops import layers as L
 from onnx_transformer_tpu_torch.ops.kernels import w8a8_matmul as K
 from onnx_transformer_tpu_torch.quant import core as Q
 
@@ -91,8 +98,9 @@ def quantize_model_params(model: Transformer, params: dict, bits: int = 8,
     return payloads
 
 
-def _fused_ok(p: dict, name: str, x: torch.Tensor, bits: int) -> bool:
-    return (bits == 8 and is_quantized_output(name)
+def _fused_ok(p: dict, name: str, x: torch.Tensor, bits: int, taps: L.TapDict = None,
+              inject: L.InjectDict = None) -> bool:
+    return (bits == 8 and taps is None and inject is None and is_quantized_output(name)
             and x[..., 0].numel() >= FUSED_MIN_TOKENS
             and x.shape[-1] <= K.MAX_KN and p["wq"].shape[-1] <= K.MAX_KN)
 
@@ -103,24 +111,27 @@ def make_w8a8_linear_impl(payloads: dict, mode: Mode = "int8", bits: int = 8) ->
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
 
-    def lin(name: str, x, w, b):
+    def lin(name: str, x, w, b, taps: L.TapDict = None, inject: L.InjectDict = None):
         p = payloads.get(name)
         if p is None:
-            return default_linear(name, x, w, b)
-        if mode == "fused" and _fused_ok(p, name, x, bits):
+            return default_linear(name, x, w, b, taps, inject)
+        if mode == "fused" and _fused_ok(p, name, x, bits, taps, inject):
             return K.quant_w8a8_matmul_qout(x, p["wq"], p["sw"], p["b"])
+        x = L.tap(name, x, taps, inject)
         sx = Q.act_scale_per_token(x, bits)
-        xq = Q.quantize(x, sx, bits)
+        xq = L.tap(f"{name}.x_q", Q.quantize(x, sx, bits), taps, inject)
+        wq = L.tap(f"{name}.w_q", p["wq"], taps, inject)
         if mode == "fake":
-            y = torch.matmul(Q.dequantize(xq, sx), Q.dequantize(p["wq"], p["sw"][None, :]))
+            y = torch.matmul(Q.dequantize(xq, sx), Q.dequantize(wq, p["sw"][None, :]))
             y = y + p["b"]
         elif mode == "pallas":
-            y = K.w8a8_matmul(xq, sx[..., 0], p["wq"], p["sw"], p["b"])
+            y = K.w8a8_matmul(xq, sx[..., 0], wq, p["sw"], p["b"])
         else:   # "int8": K5's plain version on every device
-            y = K.w8a8_matmul_ref(xq.reshape(-1, xq.shape[-1]), sx.reshape(-1), p["wq"],
+            y = K.w8a8_matmul_ref(xq.reshape(-1, xq.shape[-1]), sx.reshape(-1), wq,
                                   p["sw"], p["b"]).reshape(*x.shape[:-1], -1)
+        y = L.tap(f"{name}.out", y, taps, inject)
         if is_quantized_output(name):
-            y = Q.fake_quant_act_per_token(y, bits)
+            y = L.tap(f"{name}.out_q", Q.fake_quant_act_per_token(y, bits), taps, inject)
         return y
 
     if mode == "fused":

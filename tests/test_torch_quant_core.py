@@ -54,7 +54,7 @@ def test_scalar_helpers():
     assert [TQ.qmax_for(b) for b in (4, 8)] == [JQ.qmax_for(b) for b in (4, 8)] == [7, 127]
     x = _x((5, 9), 5)
     np.testing.assert_array_equal(
-        TQ.absmax_scale(torch.from_numpy(x), dim=0, keepdim=False).numpy(),
+        TQ.absmax_scale(torch.from_numpy(x), axis=0, keepdims=False).numpy(),
         np.asarray(JQ.absmax_scale(jnp.asarray(x), axis=0, keepdims=False)))
     q = torch.from_numpy(np.arange(-4, 5, dtype=np.int8))
     s = torch.tensor(0.25)
