@@ -103,7 +103,24 @@ Phases, each printed on its own line with its seconds:
               ``inject={}``.  Seconds per decode and steady experiments per
               second are printed; the first serial decode is profiled as
               above.
-8. reference  a small model decoded on the card and on the CPU from the same
+8. engine     the continuous-batching ``TranslationEngine`` at the same widths
+              and weights, the EOS logit raised so that outputs end at spread
+              lengths, at bench.py's engine configurations (512 slots,
+              src_len = max_len = 72, chunk 12, int8 cache, buckets 24/48/72)
+              over seeded sources of IWSLT14's length mix: E1 the fast chunk
+              (W8A8 "fused", 1,024 requests), E2 the general chunk ("pallas",
+              ``fused_attn``, 1,024 requests), E3 beam 4 ("fused", 256
+              requests).  Gates: every request back once with at most 71
+              tokens; the launches that the run's prefill and chunk dispatches
+              give (K1 18 / K2 12 per prefill of 8,192 tokens or more in E1
+              and E3, none in their chunks; K5 48 per prefill and 48 per step,
+              K3 12 per step in E2); >= 95 % per-token agreement with the
+              lockstep decode of the same requests under the same impl, and
+              a least share of requests identical to it for each run.  Useful
+              tokens/s, requests/s, occupancy, starved and gated slots, of a
+              cold engine's two waves; the lockstep decode's useful tokens/s;
+              E1 profiled once more.
+9. reference  a small model decoded on the card and on the CPU from the same
               weights, by the chunk-staged decode ("fused" mode), by the
               KV-cached decode (int8 cache, K3, "pallas" mode), and by both
               over int4 weights with ``FUSED_MIN_TOKENS`` at 1 (K6/K7): >= 95 %
@@ -127,10 +144,12 @@ import sys
 import time
 from contextlib import contextmanager
 
+import numpy as np
+
 TOTAL_BUDGET_S = 300
 PHASE_LIMIT_S = {"device": 60, "build": 120, "kernels": 120, "main path": 180,
                  "serving path": 180, "int4 path": 120, "fault campaign": 60,
-                 "reference": 60}
+                 "engine": 60, "reference": 60}
 # H100 SXM peaks at the full 700 W power limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -145,11 +164,27 @@ K5_TIME_SHAPES = [((512,), 512, 512), ((512,), 512, 2048), ((512,), 2048, 512),
 # MAX_KN corners where plan_w8a8_qrows changes BM, M = 1 with a ragged K,
 # lead dims, ragged M and N; then the configurations and load paths those
 # leave out (N = 1024; scalar loads with a ragged N at each BM), so that
-# every kernel instance runs
+# every kernel instance runs; then the serving engine's staged prefills
+# (512 x 24 and 512 x 48 slots x bucket; the beam run's 256 x 48 has 512 x
+# 24's rows, its 256 x 72 is below)
 K12_SHAPES = [((512, 72), 512, 512), ((1000,), 512, 512), ((48,), 64, 96),
               ((64,), 2048, 512), ((64,), 512, 2048), ((32,), 2048, 2048),
               ((1,), 300, 96), ((4, 15), 128, 128), ((129,), 304, 200),
-              ((64,), 512, 1024), ((96,), 512, 1000), ((40,), 2000, 200), ((17,), 300, 1800)]
+              ((64,), 512, 1024), ((96,), 512, 1000), ((40,), 2000, 200), ((17,), 300, 1800),
+              ((512, 24), 512, 512), ((512, 48), 512, 512), ((256, 72), 512, 512)]
+# K5's checks: the decode step's three shapes, the prefill's at each of the
+# serving engine's bucket widths (512 x 24, 48 and 72 rows: encoder q/k/v/o
+# and cross-K/V, FFN 1, FFN 2), M = 1 with a ragged K, lead dims, a ragged N
+# and ragged M, K and N
+K5_SHAPES = ([((512,), 512, 512), ((512,), 512, 2048), ((512,), 2048, 512)]
+             + [((m,), k, n) for m in (12288, 24576, 36864)
+                for k, n in ((512, 512), (512, 2048), (2048, 512))]
+             + [((1,), 300, 96), ((4, 15), 128, 128), ((1000,), 512, 96), ((129,), 304, 200)])
+# K3's checks ((B, T, D, H), and "ring" for the serving engine's wrapped age
+# masks): the decode step's, a few rows, T = 1, a long T, a ragged D, a wide
+# D, many heads; then the engine's general chunk at 512 slots
+K3_CASES = [(512, 72, 512, 8), (3, 72, 512, 8), (3, 1, 512, 8), (4, 1024, 512, 8),
+            (2, 9, 18, 3), (3, 72, 1024, 8), (5, 33, 256, 16), (512, 72, 512, 8, "ring")]
 # K6/K7's: every K above is even, so the same list, which runs each of their
 # instances too; and K % 4 == 2, where the last k quad's odd packed row is
 # past K/2
@@ -553,7 +588,11 @@ def sass_counts(library: str, kernel: str) -> dict | None:
     return count_sass(sass, kernel)
 
 
-def k3_inputs(b: int, t: int, d: int, seed: int, device, masked_row=None):
+def k3_inputs(b: int, t: int, d: int, seed: int, device, masked_row=None, ring=False):
+    """K3's inputs with a prefix mask per row, or with ``ring`` the serving
+    engine's wrapped age mask: the ring written at ``w``, a position visible
+    iff its age ``(w - pos) mod T`` is at most the row's logical position
+    (-1 for a dead slot, up to T - 1)."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
@@ -562,8 +601,14 @@ def k3_inputs(b: int, t: int, d: int, seed: int, device, masked_row=None):
     vq = torch.randint(-127, 128, (b, t, d), generator=g, device=device, dtype=torch.int8)
     ks = torch.rand((b, t), generator=g, device=device) * 0.049 + 0.001
     vs = torch.rand((b, t), generator=g, device=device) * 0.049 + 0.001
-    lens = torch.randint(1, t + 1, (b,), generator=g, device=device)
-    mask = torch.arange(t, device=device)[None, :] < lens[:, None]
+    pos = torch.arange(t, device=device)
+    if ring:
+        w = torch.randint(0, t, (b,), generator=g, device=device)
+        lpos = torch.randint(-1, t, (b,), generator=g, device=device)
+        mask = torch.remainder(w[:, None] - pos[None, :], t) <= lpos[:, None]
+    else:
+        lens = torch.randint(1, t + 1, (b,), generator=g, device=device)
+        mask = pos[None, :] < lens[:, None]
     if masked_row is not None:
         mask[masked_row] = False
     return q, kq, ks, vq, vs, mask
@@ -571,7 +616,8 @@ def k3_inputs(b: int, t: int, d: int, seed: int, device, masked_row=None):
 
 def check_k3(device, cases, time_case) -> dict:
     """Hold K3 against its plain version (rtol 1e-5, atol 1e-4, finite) at
-    ``cases`` ((B, T, D, H) tuples; the first row of each is fully masked)
+    ``cases`` ((B, T, D, H) tuples, with a fifth item "ring" for the serving
+    engine's wrapped age masks; the first row of each is fully masked)
     with quantize on and off, and time it at ``time_case``."""
     import torch
     import torch.nn.functional as F
@@ -579,8 +625,8 @@ def check_k3(device, cases, time_case) -> dict:
     from onnx_transformer_tpu_torch.ops.kernels import decode_attention as K
 
     err = 0.0
-    for i, (b, t, d, h) in enumerate(cases):
-        args = k3_inputs(b, t, d, seed=300 + i, device=device, masked_row=0)
+    for i, (b, t, d, h, *ring) in enumerate(cases):
+        args = k3_inputs(b, t, d, seed=300 + i, device=device, masked_row=0, ring=bool(ring))
         for quantize in (True, False):
             before = K.decode_attention_int8.launches
             y = K.decode_attention_int8(*args, num_heads=h, quantize=quantize)
@@ -590,8 +636,9 @@ def check_k3(device, cases, time_case) -> dict:
             ref = K.decode_attention_int8_ref(*args, num_heads=h, quantize=quantize)
             e = (y - ref).abs().max().item()
             finite = bool(torch.isfinite(y).all())
-            print(f"kernels decode_attention_int8 B={b} T={t} D={d} H={h} quantize "
-                  f"{quantize}: max_abs_err {e} finite {finite}", flush=True)
+            print(f"kernels decode_attention_int8 B={b} T={t} D={d} H={h}"
+                  f"{' ring mask' if ring else ''} quantize {quantize}: max_abs_err {e} "
+                  f"finite {finite}", flush=True)
             if not finite:
                 raise AssertionError("K3 gave a non-finite value")
             torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-4)
@@ -1258,6 +1305,230 @@ def run_fault_campaign(device, base: dict, card: str = "", batch: int = 8, src_l
             "routing": routing}
 
 
+def engine_sources(n: int, s: int, buckets: tuple, vocab: int, seed: int) -> np.ndarray:
+    """``n`` random sources of width ``s``, their lengths drawn to the
+    IWSLT14 distribution that ``BucketedEngineFleet`` states (at s = 72:
+    57 % of 4-24 tokens, 33 % of 25-48, 10 % of 49-72; the bounds are the
+    engine's ``buckets``), each ending in EOS, PAD after it."""
+    rng = np.random.default_rng(seed)
+    lo = [min(4, buckets[0]), buckets[0] + 1, buckets[1] + 1]
+    which = rng.choice(3, size=n, p=[0.57, 0.33, 0.10])
+    lengths = np.array([rng.integers(lo[w], buckets[w] + 1) for w in which])
+    src = rng.integers(4, vocab, (n, s)).astype(np.int32)
+    pos = np.arange(s)[None, :]
+    src[pos == lengths[:, None] - 1] = 1
+    src[pos >= lengths[:, None]] = 2
+    return src
+
+
+def trimmed(rows, cfg) -> list:
+    """Token rows of a lockstep decode (BOS first) as the engine returns
+    them: cut at the first EOS or PAD, at most max_len - 1 tokens."""
+    out = []
+    for row in rows:
+        toks = []
+        for t in row[1:]:
+            if t in (cfg.eos_id, cfg.pad_id):
+                break
+            toks.append(int(t))
+        out.append(toks)
+    return out
+
+
+def token_agreement(got: list, want: list, width: int, pad: int) -> tuple[float, float]:
+    """Per-token agreement of two lists of token lists, each padded with PAD
+    to ``width`` (as the other phases compare [B, max_len] decodes), and
+    the share of requests whose tokens are identical."""
+    a = np.full((len(got), width), pad)
+    b = np.full((len(want), width), pad)
+    for i, (x, y) in enumerate(zip(got, want)):
+        a[i, :len(x)], b[i, :len(y)] = x, y
+    return float((a == b).mean()), float(np.mean([x == y for x, y in zip(got, want)]))
+
+
+# the engine runs (bench.py's engine configurations): name, W8A8 mode, engine
+# keywords beyond the shared ones, which chunk it must take, and the least
+# share of requests whose tokens equal the lockstep decode's.  A request
+# that a refill or a death snapshot gets wrong is wrong from that step on,
+# so a few such requests move this share and hardly move the per-token
+# agreement.  The H100 reads 0.9199 / 0.9668 / 0.9883 (PERF.md section 6);
+# each limit is about 2 % of the requests below that
+ENGINE_RUNS = (("E1 fast", "fused", {}, "fast", 0.90),
+               ("E2 general", "pallas", {"fused_attn": True}, "general", 0.95),
+               ("E3 beam", "fused", {"beam_size": 4}, "beam", 0.97))
+# added to the generator's EOS bias for the engine phase: the seeded model
+# emits no EOS otherwise, and every request would run to the length cap;
+# with it, outputs end at lengths spread from 0 to the cap, so slots die
+# at staggered steps, mid-chunk, and are refilled while others run
+ENGINE_EOS_BIAS = 1.4
+
+
+def engine_expected(n: int, chunk_kind: str, mode: str, prefills: list, steps: int) -> dict:
+    """Kernel launches that follow from an engine run's dispatches: each
+    prefill (``[k, Sb]`` rows) encodes k x Sb tokens (6 quantized linears
+    per encoder layer, 3 of them q/k/v) and makes the cross-K/V (2 per
+    decoder layer); each general or beam step runs the decoder's 8
+    quantized linears per layer over the slots (fewer tokens than
+    ``FUSED_MIN_TOKENS``), and 2 attentions per layer.  Mode "fused" takes
+    K1 for q/k/v and K2 for the cross-K/V at ``FUSED_MIN_TOKENS`` tokens or
+    more; mode "pallas" takes K5 for every quantized linear, and
+    ``fused_attn`` K3 for every attention step.  The fast chunk calls no
+    linear impl."""
+    from onnx_transformer_tpu_torch.quant import w8a8 as W8
+
+    want = dict.fromkeys(MATMUL_COUNTERS, 0)
+    want["attn"] = 0
+    thr = W8.FUSED_MIN_TOKENS
+    lin_steps = 0 if chunk_kind == "fast" else steps
+    if mode == "fused":
+        big = sum(k * sb >= thr for k, sb in prefills)
+        want["qout"] = 3 * n * big
+        want["q8"] = 2 * n * big
+    else:
+        want["w8a8"] = 8 * n * len(prefills) + 8 * n * lin_steps
+        want["attn"] = 2 * n * lin_steps
+    return want
+
+
+def run_engine_path(device, base: dict, card: str = "", slots: int = 512, seq: int = 72,
+                    buckets: tuple = (24, 48, 72), chunk: int = 12,
+                    requests: tuple = (1024, 1024, 256)) -> dict:
+    """The continuous-batching engine at bench.py's engine configurations
+    (``ENGINE_RUNS``; ``bench.py:143-148`` and ``426-429``), the model's EOS
+    logit raised by ``ENGINE_EOS_BIAS``, over seeded sources of IWSLT14's length
+    distribution: each run's requests submitted, the kernel counters set to
+    0, ``run()`` timed from a cold engine (its state allocated inside the
+    time; two waves of requests, so the drain tail is a large share), its
+    prefill and chunk dispatches counted by wrapping the engine's own
+    methods.  Gates: every request back once, done, with at most max_len - 1
+    tokens; the launches those dispatches give (``engine_expected``); >= 95 %
+    per-token agreement with the lockstep decode of the same requests under
+    the same impl (E1 ``greedy_decode`` with the int8 cache, E2 with
+    ``fused_attn`` too, E3 ``beam_decode`` with k=4), and each run's least
+    share of requests identical to it.  E1 is then run once more under the
+    profiler."""
+    import torch
+
+    import onnx_transformer_tpu_torch as P
+    from onnx_transformer_tpu_torch.ops import layers as L
+    from onnx_transformer_tpu_torch.ops.kernels import decode_attention as KA
+    from onnx_transformer_tpu_torch.ops.kernels import w8a8_matmul as KM
+
+    model = base["model"]
+    cfg = model.cfg
+    n = cfg.num_layers
+    # a copy of the parameters with the EOS logit raised; base stays as it is
+    gen = dict(base["params"]["generator"])
+    gen["b"] = gen["b"].clone()
+    gen["b"][cfg.eos_id] += ENGINE_EOS_BIAS
+    sp = {**base["params"], "generator": gen}
+    counters = {k: getattr(KM, v) for k, v in MATMUL_COUNTERS.items()}
+    counters["attn"] = KA.decode_attention_int8
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    results = {}
+    for (label, mode, extra, kind, min_same), n_req in zip(ENGINE_RUNS, requests):
+        lin = P.make_w8a8_linear_impl(base["payloads"], mode=mode)
+        beam = extra.get("beam_size", 1)
+        kw = dict(num_slots=slots, src_len=seq, max_len=seq, chunk_steps=chunk,
+                  kv_cache_dtype="int8", buckets=buckets, **extra)
+        if beam > 1:     # bench.py:426-429
+            kw.update(prefill_chunk=slots // 2, stage_capacity=2 * slots,
+                      comp_capacity=4 * slots)
+        else:            # bench.py:143-148
+            kw.update(prefill_chunk=slots, stage_capacity=n_req + slots,
+                      comp_capacity=16 * slots)
+        eng = P.TranslationEngine(model, sp, lin=lin, **kw)
+        took = ("fast" if eng._stacked is not None else "beam" if eng.beam > 1
+                else "general")
+        if took != kind:
+            raise AssertionError(f"engine {label} took the {took} chunk, not the {kind} one")
+        dispatch = {"prefill": [], "chunk": 0}
+        real_prefill, real_chunk = eng._prefill, eng._chunk
+
+        def prefill(st, src_rows, *a, real=real_prefill, d=dispatch):
+            d["prefill"].append(tuple(src_rows.shape))
+            return real(st, src_rows, *a)
+
+        def chunk_call(*a, real=real_chunk, d=dispatch):
+            d["chunk"] += 1
+            return real(*a)
+
+        eng._prefill, eng._chunk = prefill, chunk_call
+        src = engine_sources(n_req, seq, buckets, cfg.src_vocab_size, seed=40 + len(results))
+        ids = [eng.submit(row) for row in src]
+        sync()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        done = eng.run()
+        sync()
+        dt = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        got = {r.req_id: r for r in done}
+        if (len(done) != n_req or sorted(got) != sorted(ids)
+                or not all(r.done and len(r.out_tokens) <= seq - 1 for r in done)):
+            raise AssertionError(f"engine {label}: {len(done)} requests back of {n_req}, "
+                                 f"{len(set(got))} distinct, or one not done or too long")
+        want = engine_expected(n, kind, mode, dispatch["prefill"], dispatch["chunk"] * chunk)
+        print(f"engine {label} dispatches: {len(dispatch['prefill'])} prefills "
+              f"{sorted(set(dispatch['prefill']))}, {dispatch['chunk']} chunks of {chunk} "
+              f"steps; launches {launches} (expected {want})", flush=True)
+        if launches != want:
+            raise AssertionError(f"engine {label}: expected launches {want}, got {launches}")
+        outs = [got[i].out_tokens for i in ids]
+        useful = sum(len(t) + 1 for t in outs)       # bench.py:173: +1 for EOS
+        occ = eng.occ_live_steps / max(eng.occ_slot_steps, 1)
+
+        tsrc = torch.from_numpy(src).to(device)
+        sm = L.make_src_mask(tsrc)
+        sync()
+        t0 = time.perf_counter()
+        if beam > 1:
+            ys = P.beam_decode(model, sp, tsrc, sm, seq, beam_size=beam, lin=lin,
+                               kv_cache_dtype="int8")
+        else:
+            ys = P.greedy_decode(model, sp, tsrc, sm, seq, lin=lin, kv_cache_dtype="int8",
+                                 fused_attn=extra.get("fused_attn", False))
+        sync()
+        dt_ref = time.perf_counter() - t0
+        ref = trimmed(ys.cpu().numpy(), cfg)
+        agree, same = token_agreement(outs, ref, seq - 1, cfg.pad_id)
+        useful_ref = sum(len(t) + 1 for t in ref)
+        lens = np.array([len(t) for t in outs])
+        print(f"engine {label} output lengths: min {lens.min()} quartiles "
+              f"{np.percentile(lens, [25, 50, 75]).tolist()} max {lens.max()}; empty "
+              f"{np.mean(lens == 0)}, at the cap of {seq - 1} {np.mean(lens == seq - 1)}",
+              flush=True)
+        print(f"engine {label} ({n_req} requests, {slots} slots, mode {mode}): "
+              f"{useful / dt:.3f} useful tokens/s, {n_req / dt:.3f} requests/s, {dt:.6f} s; "
+              f"occupancy {occ:.6f} ({eng.occ_live_steps} of {eng.occ_slot_steps} slot-steps), "
+              f"starved {eng.starved_slots} gated {eng.gated_slots} slots; lockstep "
+              f"{'beam_decode' if beam > 1 else 'greedy_decode'} {useful_ref / dt_ref:.3f} "
+              f"useful tokens/s in {dt_ref:.6f} s; token agreement {agree} (requests "
+              f"identical {same}) on {card}", flush=True)
+        if agree < 0.95:
+            raise AssertionError(f"engine {label}: token agreement {agree} < 0.95")
+        if same < min_same:
+            raise AssertionError(f"engine {label}: requests identical {same} < {min_same}")
+        results[label] = {"launches": launches, "seconds": dt, "useful_per_s": useful / dt,
+                          "occupancy": occ, "agree": agree, "identical": same,
+                          "dispatch": dispatch, "lockstep_useful_per_s": useful_ref / dt_ref}
+        if kind == "fast" and device.type == "cuda":
+            eng._prefill, eng._chunk = real_prefill, real_chunk
+
+            def again(eng=eng, src=src):
+                for row in src:
+                    eng.submit(row)
+                eng.run()
+
+            prof = profile_decode(again, sync, dt)
+            results[label]["busy_ms"] = prof["busy_ms"]
+            print(f"engine {label} profiled run: device busy {prof['busy_ms']:.3f} ms, "
+                  f"{100 * prof['busy_ms'] / (dt * 1e3):.1f} % of the unprofiled run's "
+                  f"{dt:.6f} s on {card}", flush=True)
+    return results
+
+
 def run_reference(device) -> float:
     """The port's decode on ``device`` against the same decode on the CPU,
     small model, same weights."""
@@ -1356,15 +1627,10 @@ def main() -> int:
             if counts is not None and (counts["IDP"] or not counts["IMMA"] + counts["HGMMA"]):
                 raise AssertionError(f"{label} must run on the tensor cores, without dp4a: "
                                      f"{counts}")
-        rows.update(check_k5(device, [((512,), 512, 512), ((512,), 512, 2048),
-                                      ((512,), 2048, 512), ((36864,), 512, 512),
-                                      ((1,), 300, 96), ((4, 15), 128, 128),
-                                      ((1000,), 512, 96), ((129,), 304, 200)], K5_TIME_SHAPES))
+        rows.update(check_k5(device, K5_SHAPES, K5_TIME_SHAPES))
         counts = sass_counts(build.build_info["path"], "w8a8_gemm_kernel")
         print(f"kernels w8a8_matmul SASS instructions (cuobjdump): {counts}", flush=True)
-        rows.update(check_k3(device, [(512, 72, 512, 8), (3, 72, 512, 8), (3, 1, 512, 8),
-                                      (4, 1024, 512, 8), (2, 9, 18, 3), (3, 72, 1024, 8),
-                                      (5, 33, 256, 16)], (512, 72, 512, 8)))
+        rows.update(check_k3(device, K3_CASES, (512, 72, 512, 8)))
         rows.update(check_quant_gemm(device, QGEMM_SHAPES, QGEMM_TIME_SHAPES))
 
     with phase("main path"):
@@ -1379,6 +1645,9 @@ def main() -> int:
 
     with phase("fault campaign"):
         run_fault_campaign(device, base, card=card)
+
+    with phase("engine"):
+        run_engine_path(device, base, card=card)
 
     with phase("reference"):
         run_reference(device)

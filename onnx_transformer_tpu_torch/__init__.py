@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of ``onnx_transformer_tpu``.
 
 Imports ``torch`` and numpy only: nothing of JAX and nothing of the JAX
-package.  It covers three serving paths of the IWSLT14 model:
+package.  It covers four serving paths of the IWSLT14 model:
 
 - the W8A8 int8-KV chunk-staged greedy decode (``greedy_decode_chunked``):
   encoder, cross-K/V producer, SmoothQuant, W8A8 linears and the decode
@@ -13,7 +13,11 @@ package.  It covers three serving paths of the IWSLT14 model:
 - the KV-cached decode of ``serving.decode`` (``greedy_decode``, its early
   exit, the no-cache oracle, ``beam_decode``) over an fp32 or int8 cache,
   with the int8-cache attention kernel K3 (``fused_attn=True``) and the
-  W8A8 matmul kernel K5 (W8A8 mode ``pallas``).
+  W8A8 matmul kernel K5 (W8A8 mode ``pallas``);
+- the continuous-batching serving engine (``serving.engine``:
+  ``TranslationEngine``, ``BucketedEngineFleet``) over those decodes: its
+  staged prefill runs K1/K2 (or K6/K7, or K5), its chunks the chunk-staged
+  step or ``decode_step`` (K3, K5), and slot-group beam search.
 
 Every model method and linear impl takes the reference's ``taps``/``inject``
 seam (``ops.layers.tap``), through which ``quant.calibrate`` records
@@ -80,6 +84,12 @@ from onnx_transformer_tpu_torch.serving.decode import (  # noqa: E402
     greedy_decode_nocache,
     ids_to_tokens,
 )
+from onnx_transformer_tpu_torch.serving.engine import (  # noqa: E402
+    BucketedEngineFleet,
+    EngineStalledError,
+    Request,
+    TranslationEngine,
+)
 
 __all__ = [
     "Transformer", "TransformerConfig", "default_linear", "build_stacked",
@@ -90,5 +100,6 @@ __all__ = [
     "params_from_jax", "load_checkpoint_params", "load_reference_scales",
     "smooth_params", "make_w8a8_linear_impl", "quantize_transformer",
     "quantize_model_params_int4", "make_w4a8_linear_impl", "make_qat_linear_impl",
-    "resolve_device",
+    "resolve_device", "TranslationEngine", "BucketedEngineFleet", "Request",
+    "EngineStalledError",
 ]

@@ -206,8 +206,10 @@ def flush_inflight(cache_layers: list, inflight: list, base: int) -> None:
         lc["v_scale"][:, base:base + c, 0] = fl["vs"]
 
 
-def embed_token(stacked: dict, cfg, tok: torch.Tensor, pos: int) -> torch.Tensor:
-    """tok [B, 1] at position ``pos`` -> [B, D] (lut * sqrt(d) + PE)."""
+def embed_token(stacked: dict, cfg, tok: torch.Tensor, pos) -> torch.Tensor:
+    """tok [B, 1] -> [B, D] (lut * sqrt(d) + PE) at ``pos``: an int for the
+    whole batch, or a [B] tensor of per-row positions (the serving engine
+    embeds each slot at its own position)."""
     lut = stacked["tgt_lut"]
     x = lut[tok[:, 0]] * float(np.float32(np.sqrt(cfg.d_model)))
     pe = L.pe_rows(cfg.max_len, cfg.d_model, lut.device)

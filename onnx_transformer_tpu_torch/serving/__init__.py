@@ -5,3 +5,9 @@ from onnx_transformer_tpu_torch.serving.decode import (  # noqa: F401
     greedy_decode_nocache,
     ids_to_tokens,
 )
+from onnx_transformer_tpu_torch.serving.engine import (  # noqa: F401
+    BucketedEngineFleet,
+    EngineStalledError,
+    Request,
+    TranslationEngine,
+)

@@ -1,8 +1,8 @@
 """chip_smoke.py's phases rehearsed on the CPU at a tiny size: the kernel
 checks, the chunk-staged main path, the KV-cached serving path with its
 launch counts, the int4 path with its launch counts, the fault campaign
-(no launch at all) with its check of the kernels' routing, and the
-reference phase.  On the CPU the kernel wrappers
+(no launch at all) with its check of the kernels' routing, the serving
+engine's runs with their launch arithmetic, and the reference phase.  On the CPU the kernel wrappers
 take their plain versions and count nothing, so each wrapper is wrapped
 here to count its calls; the CUDA-only timing and profiling are stubbed.
 The script itself runs on the card (``python3 chip_smoke.py``)."""
@@ -45,8 +45,9 @@ def rehearsal(monkeypatch):
 
 def test_kernel_checks(rehearsal):
     # K1/K2 at the card check's shapes, all but the main path's 36,864 rows
+    # and the engine prefills' 12,288 to 24,576
     k12 = [s for s in C.K12_SHAPES if np.prod(s[0]) <= 1000]
-    assert len(k12) == len(C.K12_SHAPES) - 1
+    assert len(k12) == len(C.K12_SHAPES) - 4
     rows = C.check_kernels(CPU, [((4, 7), 64, 96)] + k12, ((4, 7), 64, 96))
     k5_times = [((16,), 64, 64), ((16,), 64, 256), ((16,), 256, 64), ((40,), 64, 64)]
     rows.update(C.check_k5(CPU, [((5,), 64, 96), ((1,), 300, 96), ((4, 15), 128, 128)],
@@ -59,10 +60,11 @@ def test_kernel_checks(rehearsal):
         assert {"ms", "plain_ms", "bound_ms", "bound_by", "int_mm_ms", "tile"} <= set(s)
         assert s["bound_ms"] > 0
     assert rows["w8a8"]["bound_ms"] == shapes[0]["bound_ms"]
-    rows.update(C.check_k3(CPU, [(6, 9, 64, 4), (3, 1, 64, 4), (2, 9, 18, 3)], (6, 9, 64, 4)))
-    # K6/K7 at theirs, all but the 36,864-row one
+    rows.update(C.check_k3(CPU, [(6, 9, 64, 4), (3, 1, 64, 4), (2, 9, 18, 3),
+                                 (6, 9, 64, 4, "ring")], (6, 9, 64, 4)))
+    # K6/K7 at theirs, all but the four with thousands of rows
     k67 = [s for s in C.K67_SHAPES if np.prod(s[0]) <= 1000]
-    assert len(k67) == len(C.K67_SHAPES) - 1
+    assert len(k67) == len(C.K67_SHAPES) - 4
     rows.update(C.check_kernels(CPU, [((4, 7), 64, 96)] + k67, ((4, 7), 64, 96), packed=True))
     # K4/K8 at theirs, all but the four with thousands of rows (the plain
     # version's product is slow on the CPU), timed at small stand-ins for
@@ -157,6 +159,79 @@ def test_fault_campaign_launches_no_kernel(rehearsal, monkeypatch):
                              fanout=4, calib=(2, 4, 9))
 
 
+ENGINE_TINY = dict(slots=8, seq=9, buckets=(3, 6, 9), chunk=3, requests=(20, 20, 8))
+
+
+def test_engine_launch_arithmetic(rehearsal, monkeypatch):
+    """The engine phase at 2 layers, 8 slots and sources of 9: with the
+    token threshold at 30, E1's and E2's prefills of 8 x 6 and 8 x 9 tokens
+    take K1/K2 and those of 8 x 3 do not, E3's (4 rows each) only at 4 x 9;
+    no decode step (8 tokens) does.  E1 takes the fast chunk (no kernel in
+    its chunks), E2 K5 for every quantized linear and K3 for every
+    attention step, E3 the beam chunk; each gives the lockstep tokens."""
+    monkeypatch.setattr(TW, "FUSED_MIN_TOKENS", 30)
+    base = C.build_iwslt(CPU, num_layers=2, batch=6, src_len=9)
+    res = C.run_engine_path(CPU, base, card="cpu", **ENGINE_TINY)
+    zero = dict.fromkeys(C.MATMUL_COUNTERS, 0) | {"attn": 0}
+    e1, e2, e3 = (res[label] for label, *_ in C.ENGINE_RUNS)
+    pre = e1["dispatch"]["prefill"]
+    assert {k for k, _ in pre} == {8} and {sb for _, sb in pre} == {3, 6, 9}
+    big = sum(sb >= 6 for _, sb in pre)
+    assert e1["launches"] == zero | {"qout": 6 * big, "q8": 4 * big}
+    steps = 3 * e2["dispatch"]["chunk"]
+    assert e2["launches"] == zero | {"w8a8": 16 * len(e2["dispatch"]["prefill"]) + 16 * steps,
+                                     "attn": 4 * steps}
+    pre3 = e3["dispatch"]["prefill"]
+    assert {k for k, _ in pre3} == {4} and 9 in {sb for _, sb in pre3}
+    big3 = sum(sb == 9 for _, sb in pre3)
+    assert big3 < len(pre3) and e3["launches"] == zero | {"qout": 6 * big3, "q8": 4 * big3}
+    for r in res.values():
+        assert r["agree"] == r["identical"] == 1.0 and 0 < r["occupancy"] <= 1
+
+
+def test_engine_gate_catches_a_lost_request(rehearsal, monkeypatch):
+    """An engine that loses one completion fails the phase."""
+    from onnx_transformer_tpu_torch.serving import engine as TE
+
+    real = TE.TranslationEngine._drain_report
+    lost = []
+
+    def losing(self, report):
+        finished = real(self, report)
+        if finished and not lost:
+            lost.append(finished.pop())
+        return finished
+
+    monkeypatch.setattr(TE.TranslationEngine, "_drain_report", losing)
+    base = C.build_iwslt(CPU, num_layers=2, batch=6, src_len=9)
+    with pytest.raises(AssertionError, match="19 requests back of 20"):
+        C.run_engine_path(CPU, base, card="cpu", **ENGINE_TINY)
+    assert len(lost) == 1
+
+
+def test_engine_gate_catches_a_wrong_request(rehearsal, monkeypatch):
+    """An engine that gets one whole request wrong (here its last token
+    lost) keeps the per-token agreement above 0.95 but fails the run's
+    least share of identical requests, set to 1.0 here."""
+    from onnx_transformer_tpu_torch.serving import engine as TE
+
+    real = TE.TranslationEngine._drain_report
+    cut = []
+
+    def cutting(self, report):
+        finished = real(self, report)
+        if finished and not cut:
+            cut.append(finished[0].out_tokens.pop())
+        return finished
+
+    monkeypatch.setattr(TE.TranslationEngine, "_drain_report", cutting)
+    monkeypatch.setattr(C, "ENGINE_RUNS", tuple(r[:4] + (1.0,) for r in C.ENGINE_RUNS))
+    base = C.build_iwslt(CPU, num_layers=2, batch=6, src_len=9)
+    with pytest.raises(AssertionError, match="E1 fast: requests identical 0.95 < 1.0"):
+        C.run_engine_path(CPU, base, card="cpu", **ENGINE_TINY)
+    assert len(cut) == 1
+
+
 @pytest.mark.parametrize("gate", ["_fused_ok", "_k6_ok"])
 def test_kernel_routing_catches_a_broken_gate(rehearsal, monkeypatch, gate):
     """A linear impl's kernel gate that ignores the seam fails the routing
@@ -203,6 +278,11 @@ def test_k12_shapes_reach_every_kernel_instance():
     for shape in [((512, 72), 512, 512), ((64,), 2048, 512), ((64,), 512, 2048),
                   ((32,), 2048, 2048), ((1,), 300, 96), ((4, 15), 128, 128), ((129,), 304, 200)]:
         assert shape in C.K12_SHAPES
+    # the serving engine's staged prefills: slots x bucket rows of E1/E2
+    # (512 x 24/48/72) and E3 (256 x 24/48/72), at the encoder's q/k/v and
+    # the cross-K/V widths
+    rows = {int(np.prod(lead)) for lead, k, n in C.K12_SHAPES if (k, n) == (512, 512)}
+    assert {k * sb for k in (512, 256) for sb in (48, 72)} <= rows and 512 * 24 in rows
     # K6/K7's (even K only): every configuration their planner can give (it
     # never gives tile 1 for packed weights, which w4a8_qrows.cu does not
     # build) with both loads, and a K % 4 == 2
@@ -214,6 +294,30 @@ def test_k12_shapes_reach_every_kernel_instance():
     assert reached == {(t, v) for t in (0, 2, 3) for v in (True, False)}
     assert set(C.K12_SHAPES) < set(C.K67_SHAPES)
     assert any(k % 4 == 2 for _, k, _ in C.K67_SHAPES)
+
+
+def test_k5_and_k3_checks_cover_the_engine():
+    """K5 is checked at the engine prefills' rows (512 slots x each bucket)
+    for every product of the encoder and the cross-K/V, and K3 at the
+    general chunk's wrapped age masks: per row a window of the last lpos + 1
+    positions ending at the ring index, empty for a dead slot, wrapping past
+    T - 1."""
+    for m in (512 * 24, 512 * 48, 512 * 72):
+        for k, n in ((512, 512), (512, 2048), (2048, 512)):
+            assert ((m,), k, n) in C.K5_SHAPES
+    assert (512, 72, 512, 8, "ring") in C.K3_CASES
+    b, t = 64, 9
+    *_, mask = C.k3_inputs(b, t, 8, seed=3, device=CPU, ring=True)
+    wrapped = 0
+    for row in mask.tolist():
+        vis = [p for p in range(t) if row[p]]
+        if not vis:
+            continue
+        # the visible set is one window of consecutive positions mod T
+        starts = [p for p in vis if not row[(p - 1) % t]]
+        assert len(starts) == 1 or len(vis) == t
+        wrapped += row[0] and row[t - 1] and len(vis) < t
+    assert not all(mask.any(1)) and wrapped > 0
 
 
 def test_qgemm_shapes_reach_every_kernel_instance():

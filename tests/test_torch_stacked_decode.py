@@ -247,3 +247,19 @@ def test_final_logits_log_probs_matches_jax(setup):
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
     lp = TSD.final_logits(pstacked, torch.from_numpy(x), log_probs=True)
     np.testing.assert_allclose(lp.exp().sum(-1).numpy(), 1.0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("pos", [0, 5, [0, 3, 0, 11, 7, 1]])
+def test_embed_token_matches_jax(setup, pos):
+    """A position for the whole batch, or a [B] vector of per-row positions
+    (with position 0 among them), as the serving engine's fast chunk embeds
+    each slot at its own position."""
+    m, _, _, stacked = setup["jax"]
+    pm, _, _, pstacked = setup["torch"]
+    tok = np.random.default_rng(8).integers(0, 31, (6, 1)).astype(np.int32)
+    jpos = jnp.asarray(pos, jnp.int32) if isinstance(pos, list) else pos
+    tpos = torch.tensor(pos) if isinstance(pos, list) else pos
+    want = np.asarray(JSD.embed_token(stacked, m.cfg, jnp.asarray(tok), jpos))
+    got = TSD.embed_token(pstacked, pm.cfg, torch.from_numpy(tok), tpos)
+    assert got.shape == (6, 32)
+    np.testing.assert_array_equal(got.numpy(), want)
