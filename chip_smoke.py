@@ -120,7 +120,25 @@ Phases, each printed on its own line with its seconds:
               tokens/s, requests/s, occupancy, starved and gated slots, of a
               cold engine's two waves; the lockstep decode's useful tokens/s;
               E1 profiled once more.
-9. reference  a small model decoded on the card and on the CPU from the same
+9. train      training at the same widths, weights from a seed, over
+              synthetic BPE-like pairs of the vocabularies' own tokens at the
+              IWSLT14 length mix: one f32, dropout-0 loss and gradient at
+              B=8 x 72 on the card and on the CPU from the same params and
+              batch (loss within rtol 1e-5, gradients within
+              ``TRAIN_GRAD_LIMIT`` of the largest, TF32 off); the shipped
+              recipe (bf16 compute, dropout 0.3, the port's
+              ``BucketedLoader`` at 12,288 tokens over buckets 16/24/32/48/72,
+              the native encoder when it builds): one warm step per bucket
+              shape, then ``run_epoch`` over 10 batches, timed: target
+              tokens/s, ms per step and MFU against the H100's dense bf16
+              peak, every loss finite, one step profiled; 24 f32 steps on one
+              fixed batch must bring the loss under ``LEARN_SHARE`` of its
+              first, the QAT impl's 6 steps must be finite and fall; a
+              checkpoint saved after step 12 and restored into a fresh state
+              must give the uninterrupted run's next step bit for bit.  No
+              kernel of K1-K8 launches: training's products are plain
+              ``torch.matmul``, as the JAX package's are XLA's.
+10. reference  a small model decoded on the card and on the CPU from the same
               weights, by the chunk-staged decode ("fused" mode), by the
               KV-cached decode (int8 cache, K3, "pallas" mode), and by both
               over int4 weights with ``FUSED_MIN_TOKENS`` at 1 (K6/K7): >= 95 %
@@ -149,7 +167,7 @@ import numpy as np
 TOTAL_BUDGET_S = 300
 PHASE_LIMIT_S = {"device": 60, "build": 120, "kernels": 120, "main path": 180,
                  "serving path": 180, "int4 path": 120, "fault campaign": 60,
-                 "engine": 60, "reference": 60}
+                 "engine": 60, "train": 60, "reference": 60}
 # H100 SXM peaks at the full 700 W power limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -684,11 +702,12 @@ def make_source(b: int, s: int, vocab: int, seed: int, device):
     return src.to(device)
 
 
-def profile_decode(decode, sync, wall_s: float) -> dict:
-    """One decode under torch.profiler, tracing the device only (host-side
-    op recording would slow the host-bound loop tenfold): the device's busy
-    time against ``wall_s``, the unprofiled wall time of the same decode,
-    the kernel launches, and the kernels that take the most device time."""
+def profile_decode(decode, sync, wall_s: float, label: str = "decode") -> dict:
+    """One decode (or another call, named by ``label``) under
+    torch.profiler, tracing the device only (host-side op recording would
+    slow the host-bound loop tenfold): the device's busy time against
+    ``wall_s``, the unprofiled wall time of the same call, the kernel
+    launches, and the kernels that take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -704,9 +723,9 @@ def profile_decode(decode, sync, wall_s: float) -> dict:
             ms, n = by_kernel.get(e.name(), (0.0, 0))
             by_kernel[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
     busy_ms = sum(ms for ms, _ in by_kernel.values())
-    print(f"profile one decode: device busy {busy_ms:.3f} ms = "
+    print(f"profile one {label}: device busy {busy_ms:.3f} ms = "
           f"{100 * busy_ms / (wall_s * 1e3):.1f} % of the {wall_s * 1e3:.3f} ms "
-          f"unprofiled decode; {sum(n for _, n in by_kernel.values())} kernel launches",
+          f"unprofiled {label}; {sum(n for _, n in by_kernel.values())} kernel launches",
           flush=True)
     for name, (ms, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"profile {ms:9.3f} ms {n:6d}x {name[:90]}", flush=True)
@@ -1305,15 +1324,21 @@ def run_fault_campaign(device, base: dict, card: str = "", batch: int = 8, src_l
             "routing": routing}
 
 
-def engine_sources(n: int, s: int, buckets: tuple, vocab: int, seed: int) -> np.ndarray:
-    """``n`` random sources of width ``s``, their lengths drawn to the
-    IWSLT14 distribution that ``BucketedEngineFleet`` states (at s = 72:
-    57 % of 4-24 tokens, 33 % of 25-48, 10 % of 49-72; the bounds are the
-    engine's ``buckets``), each ending in EOS, PAD after it."""
-    rng = np.random.default_rng(seed)
+def iwslt_lengths(rng, n: int, buckets: tuple = (24, 48, 72)) -> np.ndarray:
+    """``n`` sequence lengths drawn to the IWSLT14 distribution that
+    ``BucketedEngineFleet`` states (at (24, 48, 72): 57 % of 4-24 tokens,
+    33 % of 25-48, 10 % of 49-72; the bounds are ``buckets``)."""
     lo = [min(4, buckets[0]), buckets[0] + 1, buckets[1] + 1]
     which = rng.choice(3, size=n, p=[0.57, 0.33, 0.10])
-    lengths = np.array([rng.integers(lo[w], buckets[w] + 1) for w in which])
+    return np.array([rng.integers(lo[w], buckets[w] + 1) for w in which])
+
+
+def engine_sources(n: int, s: int, buckets: tuple, vocab: int, seed: int) -> np.ndarray:
+    """``n`` random sources of width ``s``, their lengths drawn by
+    ``iwslt_lengths`` with the engine's ``buckets``, each ending in EOS, PAD
+    after it."""
+    rng = np.random.default_rng(seed)
+    lengths = iwslt_lengths(rng, n, buckets)
     src = rng.integers(4, vocab, (n, s)).astype(np.int32)
     pos = np.arange(s)[None, :]
     src[pos == lengths[:, None] - 1] = 1
@@ -1529,6 +1554,241 @@ def run_engine_path(device, base: dict, card: str = "", slots: int = 512, seq: i
     return results
 
 
+# the train phase: the shipped recipe (scripts/train_iwslt14.py --dtype bf16
+# --token-budget 12288, as bench.py:191-223 measures it), its buckets, the
+# H100 SXM's dense bf16 peak at 700 W (NVIDIA data sheet) for the MFU
+TRAIN_BUDGET = 12288
+TRAIN_BUCKETS = (16, 24, 32, 48, 72)
+BF16_FLOPS_PER_S = 989.4e12
+# card against CPU: the largest gradient difference of the f32 loss at
+# dropout 0 with the attention probabilities' 1/127 rounding off, as a
+# share of the largest gradient (TF32 off)
+TRAIN_GRAD_LIMIT = 1e-4
+# learning on one fixed batch: LEARN_STEPS steps (tests/test_train.py's
+# base_lr 2.0, warmup 100) must bring the loss under LEARN_SHARE of its
+# first value; the checkpoint is saved after CKPT_STEP of them; the QAT
+# impl takes QAT_STEPS steps and its loss must fall
+LEARN_STEPS, LEARN_SHARE, CKPT_STEP, QAT_STEPS = 24, 0.25, 12, 6
+
+
+def train_flops_per_token(cfg) -> float:
+    """Analytic fwd+bwd matmul FLOPs per token (backward ~2x forward),
+    copied from bench.py:183-188."""
+    d, ff, v, n = cfg.d_model, cfg.d_ff, cfg.tgt_vocab_size, cfg.num_layers
+    enc = n * (4 * d * d + 2 * d * ff)
+    dec = n * (8 * d * d + 2 * d * ff)
+    return 3 * 2.0 * (enc + dec + d * v)
+
+
+def train_mfu(tokens_per_s: float, cfg) -> float:
+    """Model FLOP utilization against the H100 SXM's dense bf16 peak."""
+    return tokens_per_s * train_flops_per_token(cfg) / BF16_FLOPS_PER_S
+
+
+def train_pairs(n: int, vocab_src, vocab_tgt, seed: int) -> list:
+    """``n`` synthetic BPE-like sentence pairs drawn from the vocabularies'
+    own tokens (no specials).  A source's length with BOS and EOS follows
+    ``iwslt_lengths`` (at most 72), its target's is within 3 tokens of it."""
+    rng = np.random.default_rng(seed)
+    src_len = iwslt_lengths(rng, n) - 2
+    tgt_len = np.clip(src_len + rng.integers(-3, 4, n), 1, 70)
+    src_ids = rng.integers(4, len(vocab_src), int(src_len.sum()))
+    tgt_ids = rng.integers(4, len(vocab_tgt), int(tgt_len.sum()))
+    pairs, i, j = [], 0, 0
+    for a, b in zip(src_len, tgt_len):
+        pairs.append((" ".join(vocab_src.itos[k] for k in src_ids[i:i + a]),
+                      " ".join(vocab_tgt.itos[k] for k in tgt_ids[j:j + b])))
+        i, j = i + a, j + b
+    return pairs
+
+
+def check_learning(losses: list, share: float, label: str) -> None:
+    """Every loss finite and the last under ``share`` of the first."""
+    if not all(np.isfinite(losses)) or not losses[-1] < share * losses[0]:
+        raise AssertionError(f"train {label}: losses {losses[0]} -> {losses[-1]} are not "
+                             f"finite or not under {share} of the first")
+
+
+def check_resume(resumed: dict, uninterrupted: dict) -> None:
+    """The resumed run's state equals the uninterrupted run's, bit for bit."""
+    import torch
+
+    from onnx_transformer_tpu_torch.params import tree_paths
+
+    for (key, a), (_, b) in zip(tree_paths(resumed), tree_paths(uninterrupted)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"train checkpoint: the resumed step differs at {key}: "
+                                 f"max_abs_diff {(a.float() - b.float()).abs().max().item()}")
+
+
+def run_train_path(device, card: str = "", num_layers: int = 6, n_pairs: int = 8000, budget: int = TRAIN_BUDGET, parity: tuple = (8, 72),
+                   timed_steps: int = 10, learn_batch: tuple = (32, 32)) -> dict:
+    """Training at the IWSLT14-base widths, weights from a seed, over
+    ``train_pairs``: (1) one f32,
+    dropout-0 loss and gradient on the card and on the CPU from the same
+    params and batch (B x S = ``parity``); (2) the shipped recipe: the
+    port's ``BucketedLoader`` at ``budget`` tokens (the native encoder when
+    it builds), ``make_train_step(compute_dtype=bfloat16)`` at dropout 0.3,
+    one warm step per bucket shape, then ``run_epoch`` over ``timed_steps``
+    batches, timed: target tokens/s, ms per step, MFU; one step profiled;
+    (3) learning on one fixed batch, f32 at dropout 0, and the QAT impl on
+    it; (4) a checkpoint saved after ``CKPT_STEP`` steps, restored into a
+    fresh state, and its next step against the uninterrupted run's.  No
+    kernel of K1-K8 may launch."""
+    import tempfile
+
+    import torch
+
+    import onnx_transformer_tpu_torch as P
+    from onnx_transformer_tpu_torch.ops.kernels import decode_attention as KA
+    from onnx_transformer_tpu_torch.ops.kernels import w8a8_matmul as KM
+    from onnx_transformer_tpu_torch.params import tree_leaves, tree_map
+    from onnx_transformer_tpu_torch.quant.int4 import make_qat_linear_impl
+    from onnx_transformer_tpu_torch.train import checkpoint as CK
+    from onnx_transformer_tpu_torch.train import trainer as T
+
+    cpu = torch.device("cpu")
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    counters = [getattr(KM, v) for v in MATMUL_COUNTERS.values()] + [KA.decode_attention_int8]
+    before = [c.launches for c in counters]
+    vs, vt = P.load_iwslt14_vocab()
+    cfg = P.TransformerConfig(len(vs), len(vt), num_layers=num_layers)
+    pairs = train_pairs(n_pairs, vs, vt, seed=60)
+    out = {}
+
+    # (1) card against CPU, f32 at dropout 0: gated with the model's 1/127
+    # rounding of attention probabilities off, since with it on an ulp of
+    # difference in p moves a whole 1/127 step (and the straight-through
+    # gradient carries it); with it on, the loss is gated and the
+    # gradients' difference printed
+    t0 = time.perf_counter()
+    b, s = parity
+    batch = P.Batch.make(*P.collate(pairs[:b], vs, vt, s))
+    for rounding in (False, True):
+        model0 = P.Transformer(cfg.with_(dropout=0.0, quantize_attn_probs=rounding))
+        params_cpu = model0.init(seed=0, device=cpu)
+        res = {}
+        for dev in (cpu, device):
+            params = P.params_from_jax(params_cpu, device=dev)
+            (mean, _, _), grads = T.value_and_grad(model0, params,
+                                                   P.batch_to_arrays(batch, device=dev))
+            res[dev.type] = (float(mean), [g.to(cpu) for g in grads])
+        (lc, gc), (ld, gd) = res["cpu"], res[device.type]
+        gmax = max(g.abs().max().item() for g in gc)
+        diff = max((a - c).abs().max().item() for a, c in zip(gd, gc))
+        print(f"train parity {device.type} vs cpu (B={b} x {s}, f32, dropout 0, probability "
+              f"rounding {'on' if rounding else 'off'}): loss {ld} / {lc} (rel "
+              f"{abs(ld - lc) / lc:.3g}), gradients max_abs_diff {diff:.6g} = "
+              f"{diff / gmax:.3g} of the largest {gmax:.6g}", flush=True)
+        if abs(ld - lc) > 1e-5 * abs(lc) or (not rounding and diff > TRAIN_GRAD_LIMIT * gmax):
+            raise AssertionError(f"train parity: loss {ld} vs {lc}, gradient diff "
+                                 f"{diff / gmax} of the largest, limits 1e-5 and "
+                                 f"{TRAIN_GRAD_LIMIT} (rounding off)")
+        out[f"parity_rounding_{'on' if rounding else 'off'}"] = {
+            "loss_rel": abs(ld - lc) / lc, "grad_share": diff / gmax}
+    print(f"train parity seconds {time.perf_counter() - t0:.3f}", flush=True)
+    del res, gc, gd
+
+    # (2) the shipped recipe: bf16 compute, token-budget buckets, dropout 0.3
+    t0 = time.perf_counter()
+    model = P.Transformer(cfg)
+    tx = P.make_optimizer(cfg.d_model)
+    state = P.init_state(model, tx, seed=0, device=device).tree()
+    step = P.make_train_step(model, tx, compute_dtype=torch.bfloat16)
+    loader = P.BucketedLoader(pairs, vs, vt, token_budget=budget, max_padding=72, seed=0)
+    batches = list(loader)
+    warm, rest, seen = [], [], set()
+    for bt in batches:
+        (rest if bt.src.shape in seen else warm).append(bt)
+        seen.add(bt.src.shape)
+    timed = rest[:timed_steps]
+    if len(timed) < timed_steps:
+        raise AssertionError(f"train recipe: {len(timed)} batches left to time, not {timed_steps}")
+    gen = torch.Generator(device=device).manual_seed(5)
+    warm_losses = []
+    for bt in warm:
+        state, m = step(state, P.batch_to_arrays(bt, device=device), gen)
+        warm_losses.append(m["loss"])
+    sync()
+    t_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, metrics = P.run_epoch(step, state, timed, gen, log_every=0)
+    dt = time.perf_counter() - t0
+    rate, ms = metrics["tokens"] / dt, dt / len(timed) * 1e3
+    mfu = train_mfu(rate, cfg)
+    # the KL losses are >= 0, so a finite sum means every loss is finite
+    finite = bool(torch.isfinite(torch.stack(warm_losses)).all()) and np.isfinite(
+        metrics["loss_per_token"])
+    print(f"train recipe: {len(batches)} batches of {budget} tokens, shapes "
+          f"{sorted(seen, key=lambda x: x[1])}, native encoder "
+          f"{loader._native is not None}; {len(warm)} warm steps {t_warm:.3f} s; {len(timed)} "
+          f"timed steps: {metrics['tokens']} target tokens in {dt:.6f} s = {rate:.3f} tokens/s, "
+          f"{ms:.3f} ms per step, MFU {mfu:.6f} of {BF16_FLOPS_PER_S:.4g} FLOP/s bf16 "
+          f"({train_flops_per_token(cfg):.6g} FLOP per token), loss per token "
+          f"{metrics['loss_per_token']:.6f} on {card}", flush=True)
+    if not finite:
+        raise AssertionError("train recipe: a loss is not finite")
+    out["recipe"] = {"tokens_per_s": rate, "ms_per_step": ms, "mfu": mfu}
+    if device.type == "cuda":
+        arrays = P.batch_to_arrays(timed[0], device=device)
+        prof = profile_decode(lambda: step(state, arrays, gen), sync, ms / 1e3,
+                              label="train step")
+        out["recipe"]["busy_ms"] = prof["busy_ms"]
+    del state, step
+
+    # (3) learning on one fixed batch, and (4) a checkpoint in the middle
+    lmodel = P.Transformer(cfg.with_(dropout=0.0))
+    ltx = P.make_optimizer(cfg.d_model, base_lr=2.0, warmup=100)
+    lb, ls = learn_batch
+    fixed = P.batch_to_arrays(P.Batch.make(*P.collate(pairs[:lb], vs, vt, ls)), device=device)
+    lstep = P.make_train_step(lmodel, ltx)
+    lstate = P.init_state(lmodel, ltx, seed=1, device=device).tree()
+    losses = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        for i in range(LEARN_STEPS):
+            if i == CKPT_STEP:
+                t0 = time.perf_counter()
+                CK.save(path, lstate)
+                t_save = time.perf_counter() - t0
+            lstate, m = lstep(lstate, fixed, None)
+            losses.append(m["loss"] / m["ntokens"])
+            if i == CKPT_STEP:
+                uninterrupted = tree_map(torch.clone, lstate)
+                t0 = time.perf_counter()
+                restored = CK.restore(path, P.init_state(lmodel, ltx, seed=2, device=device).tree())
+                t_restore = time.perf_counter() - t0
+                resumed, _ = lstep(restored, fixed, None)
+                check_resume(resumed, uninterrupted)
+                del restored, resumed, uninterrupted
+    losses = [float(x) for x in losses]
+    print(f"train learning (B={lb} x {ls}, f32, dropout 0, base_lr 2.0, warmup 100): loss per "
+          f"token {losses[0]:.6f} -> {losses[-1]:.6f} in {LEARN_STEPS} steps "
+          f"({losses[-1] / losses[0]:.4f} of the first, limit {LEARN_SHARE}); checkpoint after "
+          f"step {CKPT_STEP}: {sum(a.numel() * a.element_size() for a in tree_leaves(lstate))} "
+          f"bytes saved in {t_save:.3f} s, restored in {t_restore:.3f} s, its next step equal "
+          f"to the uninterrupted run's bit for bit", flush=True)
+    check_learning(losses, LEARN_SHARE, "learning")
+    del lstate
+    qstep = P.make_train_step(lmodel, ltx, lin=make_qat_linear_impl(4, 8))
+    qstate = P.init_state(lmodel, ltx, seed=1, device=device).tree()
+    qlosses = []
+    for _ in range(QAT_STEPS):
+        qstate, m = qstep(qstate, fixed, None)
+        qlosses.append(m["loss"] / m["ntokens"])
+    qlosses = [float(x) for x in qlosses]
+    print(f"train QAT (W4A8 fake-quant, same batch): loss per token {qlosses}", flush=True)
+    check_learning(qlosses, 1.0, "QAT")
+    out["learning"] = {"first": losses[0], "last": losses[-1], "qat": qlosses}
+
+    launched = [c.launches - n for c, n in zip(counters, before)]
+    print(f"train launches of K1-K8: {sum(launched)} (training runs no kernel: its products "
+          f"are torch.matmul, as the JAX package's are XLA's)", flush=True)
+    if any(launched):
+        raise AssertionError(f"the train phase launched kernels: {launched}")
+    return out
+
+
 def run_reference(device) -> float:
     """The port's decode on ``device`` against the same decode on the CPU,
     small model, same weights."""
@@ -1648,6 +1908,9 @@ def main() -> int:
 
     with phase("engine"):
         run_engine_path(device, base, card=card)
+
+    with phase("train"):
+        run_train_path(device, card=card)
 
     with phase("reference"):
         run_reference(device)

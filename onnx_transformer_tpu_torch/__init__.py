@@ -25,6 +25,17 @@ activation scales and ``inject.campaign`` runs fault-injection campaigns
 (bit flips in ``inject.bits``, sentence BLEU from ``evaluation.bleu``);
 under taps or inject the linears and attentions route around the kernels.
 
+Training (``train``): ``make_train_step`` (forward, the label-smoothed KL
+of ``train.loss``, ``torch.autograd`` backward, optax's Adam + Noam written
+out with ``torch._foreach_*``; gradient accumulation, bf16 compute over f32
+master weights, the QAT linear as ``lin``), ``run_epoch`` over the data
+layer's ``BucketedLoader`` (``data``: vocabularies, collation, masks,
+length and token-budget buckets, the native batch encoder, corpus
+loaders), and ``train.checkpoint``, whose ``.npz`` keys are the JAX
+package's, so a train state saved by either package resumes in the other.
+Training runs no kernel: its products are plain ``torch.matmul``, as the
+JAX package's are XLA's.
+
 K4 and K8 (the per-token quantize fused into K5's product, over int8 or
 packed-int4 weights) have no caller on these paths, as in the JAX package.
 All eight are CUDA kernels hand-written for Hopper; on CPU tensors each
@@ -38,6 +49,25 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from onnx_transformer_tpu_torch.data.dataset import (  # noqa: E402
+    Batch,
+    BucketedLoader,
+    collate,
+    load_pairs,
+    load_split,
+    unbpe,
+)
+from onnx_transformer_tpu_torch.data.vocab import (  # noqa: E402
+    BOS_ID,
+    EOS_ID,
+    PAD_ID,
+    UNK_ID,
+    Vocab,
+    build_vocab,
+    load_iwslt14_vocab,
+    load_vocab,
+    save_vocab,
+)
 from onnx_transformer_tpu_torch.device import resolve_device  # noqa: E402
 from onnx_transformer_tpu_torch.models.stacked_decode import (  # noqa: E402
     build_stacked,
@@ -90,6 +120,14 @@ from onnx_transformer_tpu_torch.serving.engine import (  # noqa: E402
     Request,
     TranslationEngine,
 )
+from onnx_transformer_tpu_torch.train.trainer import (  # noqa: E402
+    TrainState,
+    batch_to_arrays,
+    init_state,
+    make_optimizer,
+    make_train_step,
+    run_epoch,
+)
 
 __all__ = [
     "Transformer", "TransformerConfig", "default_linear", "build_stacked",
@@ -101,5 +139,8 @@ __all__ = [
     "smooth_params", "make_w8a8_linear_impl", "quantize_transformer",
     "quantize_model_params_int4", "make_w4a8_linear_impl", "make_qat_linear_impl",
     "resolve_device", "TranslationEngine", "BucketedEngineFleet", "Request",
-    "EngineStalledError",
+    "EngineStalledError", "Batch", "BucketedLoader", "collate", "load_pairs", "load_split",
+    "unbpe", "BOS_ID", "EOS_ID", "PAD_ID", "UNK_ID", "Vocab", "build_vocab",
+    "load_iwslt14_vocab", "load_vocab", "save_vocab", "TrainState", "batch_to_arrays",
+    "init_state", "make_optimizer", "make_train_step", "run_epoch",
 ]

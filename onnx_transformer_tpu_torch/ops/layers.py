@@ -32,8 +32,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from onnx_transformer_tpu_torch.quant.core import ste_round, true_div
+from onnx_transformer_tpu_torch.quant.core import _const, ste_round, true_div
 
 TapDict = Optional[dict]
 InjectDict = Optional[dict]
@@ -74,8 +75,14 @@ def linear(x: torch.Tensor, w: torch.Tensor,
 
 
 def embed(ids: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """``lut[ids] * sqrt(d_model)``, the factor rounded to the table's dtype
+    first as in the JAX package (a Python float would be applied in f32 to
+    a bf16 table).  The gather is ``F.embedding``, whose backward sums each
+    row's gradients in a fixed order (the CPU's ``lut[ids]`` backward adds
+    them atomically across threads), so a training step repeats bit for
+    bit."""
     d_model = lut.shape[-1]
-    return lut[ids] * float(np.sqrt(d_model).astype(np.float32))
+    return F.embedding(ids, lut) * _const(float(np.sqrt(d_model)), lut.dtype, lut.device)
 
 
 @lru_cache(maxsize=8)

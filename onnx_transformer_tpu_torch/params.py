@@ -1,8 +1,13 @@
-"""Parameter conversion and loading.
+"""Parameter conversion and loading, and the tree walks of the trainer.
 
 The JAX package's parameters are a pytree of nested dicts and lists of
 arrays (``Transformer.init``; ``train/checkpoint.py`` flattens it into
 ``params/<path>`` keys of one ``.npz``).  Both convert here with numpy alone.
+
+:func:`tree_leaves`, :func:`tree_map` and :func:`tree_paths` walk nested
+dicts, lists, tuples and named tuples in JAX's order (dict keys sorted) and
+name each leaf as JAX's ``tree_flatten_with_path`` does: a dict key or a
+sequence index, and ``.field`` for a named tuple's field.
 """
 
 from __future__ import annotations
@@ -28,6 +33,57 @@ def params_from_jax(tree: Any, device=None) -> Any:
         return torch.from_numpy(np.array(node)).to(dev)
 
     return conv(tree)
+
+
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
+def tree_paths(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
+    """[(path, leaf), ...] in JAX's flattening order, paths joined by "/"."""
+    def join(key):
+        return f"{prefix}/{key}" if prefix else str(key)
+
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in tree_paths(tree[k], join(k))]
+    if _is_namedtuple(tree):
+        return [kv for f in tree._fields for kv in tree_paths(getattr(tree, f), join("." + f))]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree) for kv in tree_paths(v, join(i))]
+    return [(prefix, tree)]
+
+
+def tree_leaves(tree: Any) -> list:
+    return [leaf for _, leaf in tree_paths(tree)]
+
+
+def tree_map(fn, tree: Any) -> Any:
+    """The same structure with ``fn`` applied to every leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_unflatten(template: Any, leaves: list) -> Any:
+    """``template``'s structure with its leaves replaced, in
+    :func:`tree_leaves` order, by ``leaves``."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if _is_namedtuple(node):
+            return type(node)(*(build(v) for v in node))
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+
+    return build(template)
 
 
 def _unflatten(flat: dict) -> Any:

@@ -43,10 +43,16 @@ def qmax_for(bits: int) -> int:
     return 2 ** (bits - 1) - 1
 
 
+def _floor_scale(s: torch.Tensor) -> torch.Tensor:
+    """max(s, 1e-5) against a 0-dim tensor: at the tie its gradient splits
+    in half as ``jnp.clip``'s does (``clamp_min`` would pass all of it)."""
+    return torch.maximum(s, _const(SCALE_FLOOR, s.dtype, s.device))
+
+
 def absmax_scale(x: torch.Tensor, axis, bits: int = 8, keepdims: bool = True) -> torch.Tensor:
-    """clamp(absmax over ``axis``, 1e-5) / qmax."""
+    """max(absmax over ``axis``, 1e-5) / qmax."""
     s = x.abs().amax(dim=axis, keepdim=keepdims)
-    return true_div(s.clamp_min(SCALE_FLOOR), qmax_for(bits))
+    return true_div(_floor_scale(s), qmax_for(bits))
 
 
 def quantize(x: torch.Tensor, scale: torch.Tensor, bits: int = 8,
@@ -72,7 +78,7 @@ def quantize_weight_per_channel(w: torch.Tensor, bits: int = 8):
 
 def quantize_weight_per_tensor(w: torch.Tensor, bits: int = 8):
     """One scale for the whole tensor: (int8, scale 0-dim)."""
-    scale = true_div(w.abs().amax().clamp_min(SCALE_FLOOR), qmax_for(bits))
+    scale = true_div(_floor_scale(w.abs().amax()), qmax_for(bits))
     return quantize(w, scale, bits), scale
 
 

@@ -1,0 +1,272 @@
+"""Training loop (port of ``onnx_transformer_tpu/train/trainer.py``).
+
+- One train step: forward, label-smoothed KL loss, ``torch.autograd``
+  backward and the Adam + Noam update, with gradient accumulation over
+  microbatches as a Python loop (the JAX package scans them).
+- The optimizer is optax's ``chain(scale_by_adam(0.9, 0.98, eps=1e-9),
+  scale_by_schedule(-noam))`` written out with ``torch._foreach_*`` over the
+  parameter leaves: the same arithmetic in the same order, and the same
+  state layout (``ScaleByAdamState(count, mu, nu)``,
+  ``ScaleByScheduleState(count)``), which the checkpoint keys follow.
+  ``torch.optim.Adam`` orders its bias corrections differently and keeps
+  its own state.
+- ``compute_dtype=torch.bfloat16`` casts every f32 leaf to bf16 inside the
+  loss, as the JAX package does: the forward and backward run in bf16,
+  autograd returns f32 gradients for the master weights through the cast,
+  and the log-softmax and KL run in f32.  (``torch.autocast`` would keep
+  LayerNorm and softmax in f32 and give other numbers than JAX's.)
+- The step keeps its counts and metrics on the device, so nothing in a step
+  waits for the device; ``run_epoch`` reads the metrics back at its log
+  points and at the end.
+
+Data and tensor parallelism over a mesh (``shard_state``, ``shard_batch``,
+``mesh=``) wait for a port of ``parallel/``.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Iterable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from onnx_transformer_tpu_torch.device import resolve_device
+from onnx_transformer_tpu_torch.models.transformer import Transformer, default_linear
+from onnx_transformer_tpu_torch.params import tree_leaves, tree_map, tree_unflatten
+from onnx_transformer_tpu_torch.train.loss import loss_and_ntokens
+from onnx_transformer_tpu_torch.train.schedule import noam_schedule
+
+
+class ScaleByAdamState(NamedTuple):
+    count: torch.Tensor   # int32, 0-dim
+    mu: Any
+    nu: Any
+
+
+class ScaleByScheduleState(NamedTuple):
+    count: torch.Tensor   # int32, 0-dim
+
+
+@dataclass
+class TrainState:
+    params: Any
+    opt_state: Any
+    step: torch.Tensor
+
+    def tree(self):
+        return {"params": self.params, "opt_state": self.opt_state, "step": self.step}
+
+
+class AdamNoam:
+    """Adam(0.9, 0.98, eps 1e-9) scaled by ``sched``, updating in place."""
+
+    B1, B2, EPS = 0.9, 0.98, 1e-9
+
+    def __init__(self, sched):
+        self.sched = sched
+
+    def init(self, params) -> tuple:
+        dev = tree_leaves(params)[0].device
+
+        def count():
+            return torch.zeros((), dtype=torch.int32, device=dev)
+
+        return (ScaleByAdamState(count(), tree_map(torch.zeros_like, params),
+                                 tree_map(torch.zeros_like, params)),
+                ScaleByScheduleState(count()))
+
+    @torch.no_grad()
+    def update_(self, params: list, grads: list, opt_state: tuple) -> None:
+        """One step over the leaf lists ``params`` and ``grads``: the
+        moments, the counts and ``params`` are updated in place."""
+        adam, sched = opt_state
+        mu, nu = tree_leaves(adam.mu), tree_leaves(adam.nu)
+        b1, b2 = self.B1, self.B2
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2))
+        adam.count.add_(1)
+        # optax's bias corrections: 1 - b ** count in f32, with the count
+        # already incremented; mu_hat / (sqrt(nu_hat) + eps)
+        denom = torch._foreach_sqrt(torch._foreach_div(nu, 1 - torch.pow(b2, adam.count)))
+        torch._foreach_add_(denom, self.EPS)
+        u = torch._foreach_div(torch._foreach_div(mu, 1 - torch.pow(b1, adam.count)), denom)
+        # scale_by_schedule takes the schedule's count before its increment
+        torch._foreach_mul_(u, -self.sched(sched.count))
+        torch._foreach_add_(params, u)
+        sched.count.add_(1)
+
+
+def make_optimizer(d_model: int, base_lr: float = 1.0, warmup: int = 3000) -> AdamNoam:
+    """Adam(0.9, 0.98, eps 1e-9) + Noam, as the JAX package's."""
+    return AdamNoam(noam_schedule(d_model, factor=base_lr, warmup=warmup))
+
+
+def init_state(model: Transformer, tx: AdamNoam, seed: int = 0, device=None) -> TrainState:
+    params = model.init(seed, device)
+    return TrainState(params, tx.init(params),
+                      torch.zeros((), dtype=torch.int32, device=resolve_device(device)))
+
+
+def _loss_fn(model, params, src, tgt_in, tgt_y, src_mask, tgt_mask, rng, smoothing,
+             lin=default_linear, compute_dtype=None):
+    """Forward + label-smoothing KL -> (loss / ntok, loss, ntok) with ntok
+    at least 1.  Under ``compute_dtype`` every f32 leaf is cast inside the
+    loss; the log-softmax and KL run in f32."""
+    if compute_dtype is not None:
+        params = tree_map(lambda p: p.to(compute_dtype) if p.dtype == torch.float32 else p,
+                          params)
+    h = model.forward(params, src, tgt_in, src_mask, tgt_mask, rng=rng, train=True, lin=lin)
+    logits = model.generate(params, h, lin=lin, log_probs=False)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    loss, ntok = loss_and_ntokens(logp, tgt_y, model.cfg.pad_id, smoothing)
+    ntok = ntok.clamp_min(1)
+    return loss / ntok, loss, ntok
+
+
+def value_and_grad(model: Transformer, params, micro: tuple, rng=None, smoothing: float = 0.1,
+                   lin=default_linear, compute_dtype=None) -> tuple[tuple, list]:
+    """((loss / ntok, loss, ntok), gradients) of the training loss on one
+    microbatch, the gradients a list in ``params.tree_leaves`` order.  The
+    loss tensors are detached."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    loss_mean, loss, ntok = _loss_fn(model, tree_unflatten(params, leaves), *micro, rng,
+                                     smoothing, lin, compute_dtype)
+    grads = torch.autograd.grad(loss_mean, leaves, materialize_grads=True)
+    return (loss_mean.detach(), loss.detach(), ntok), list(grads)
+
+
+def make_train_step(model: Transformer, tx: AdamNoam, mesh=None, accum: int = 1,
+                    smoothing: float = 0.1, donate: bool = True, lin=default_linear,
+                    compute_dtype=None):
+    """Build the train step ``fn(state_tree, batch, rng) -> (state_tree,
+    metrics)``.
+
+    ``batch`` is the 5-tuple of :func:`batch_to_arrays` (src, tgt_in,
+    tgt_y, src_mask, tgt_mask), [accum, B / accum, ...] when ``accum > 1``;
+    ``rng`` a ``torch.Generator`` on the parameters' device (or None) whose
+    draws the microbatches' dropout sites take in call order.  The gradients
+    of the microbatches are summed and divided by ``accum``; the metrics
+    (summed KL ``loss`` and ``ntokens``) stay on the device.  With
+    ``donate`` the state's tensors are updated in place and returned (the
+    counterpart of JAX's buffer donation); without it the given state is
+    left as it was.  ``lin`` swaps the linear impl, e.g. the QAT fake-quant
+    ``quant.int4.make_qat_linear_impl``."""
+    if mesh is not None:
+        raise NotImplementedError("mesh-parallel training waits for a port of parallel/")
+
+    def grads_of(params, micro, rng):
+        (_, loss, ntok), grads = value_and_grad(model, params, micro, rng, smoothing, lin,
+                                                compute_dtype)
+        return grads, loss, ntok
+
+    def step_fn(state: dict, batch: tuple, rng: Optional[torch.Generator]):
+        if not donate:
+            state = tree_map(torch.clone, state)
+        params = state["params"]
+        dev = tree_leaves(params)[0].device
+        batch = tuple(torch.as_tensor(a, device=dev) for a in batch)
+        if accum == 1:
+            grads, loss, ntok = grads_of(params, batch, rng)
+        else:
+            grads, loss, ntok = grads_of(params, tuple(a[0] for a in batch), rng)
+            for i in range(1, accum):
+                g, l_i, n_i = grads_of(params, tuple(a[i] for a in batch), rng)
+                torch._foreach_add_(grads, g)
+                loss, ntok = loss + l_i, ntok + n_i
+            # the mean of the microbatches' mean losses
+            torch._foreach_div_(grads, float(accum))
+        tx.update_(tree_leaves(params), grads, state["opt_state"])
+        state["step"].add_(1)
+        return state, {"loss": loss, "ntokens": ntok}
+
+    return step_fn
+
+
+def batch_to_arrays(b, accum: int = 1, device=None) -> tuple:
+    """A ``data.dataset.Batch`` -> the train step's tuple of tensors on
+    ``device`` (the card when None), folded to [accum, B / accum, ...]
+    microbatches when ``accum > 1``.  To a card the arrays go through pinned
+    memory with a non-blocking copy."""
+    dev = resolve_device(device)
+    out = []
+    for a in (b.src, b.tgt_in, b.tgt_y, b.src_mask, b.tgt_mask):
+        a = np.ascontiguousarray(a)
+        if accum > 1:
+            if a.shape[0] % accum:
+                raise ValueError(f"batch {a.shape[0]} not divisible by accum {accum}")
+            a = a.reshape(accum, a.shape[0] // accum, *a.shape[1:])
+        t = torch.from_numpy(a)
+        if dev.type == "cuda":
+            t = t.pin_memory().to(dev, non_blocking=True)
+        else:
+            t = t.to(dev)
+        out.append(t)
+    return tuple(out)
+
+
+def prefetch(iterable: Iterable, depth: int = 2) -> Iterable:
+    """Run ``iterable`` in a background thread, ``depth`` items ahead, so
+    that collation and the copy to the card overlap the device's step."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    done = object()
+    err: list = []
+
+    def worker():
+        try:
+            for item in iterable:
+                q.put(item)
+        except BaseException as e:  # handed to the consumer, which raises it
+            err.append(e)
+        finally:
+            q.put(done)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is done:
+            if err:
+                raise err[0]
+            return
+        yield item
+
+
+def run_epoch(step_fn, state_tree: dict, loader: Iterable, rng: Optional[torch.Generator],
+              accum: int = 1, log_every: int = 40, log_fn=print,
+              prefetch_depth: int = 2) -> tuple[dict, dict]:
+    """One pass over ``loader`` (``Batch`` items) -> (state, epoch metrics).
+
+    The batches go to the parameters' device.  The loss and token totals
+    accumulate on the device: the host reads them back only at the log
+    points (every ``log_every`` steps) and once at the end."""
+    dev = tree_leaves(state_tree["params"])[0].device
+    total_loss = total_tokens = None
+    t0 = time.time()
+    window_start_tokens = 0.0
+    arrays = (batch_to_arrays(b, accum, dev) for b in loader)
+    it = prefetch(arrays, prefetch_depth) if prefetch_depth else arrays
+    for i, batch in enumerate(it):
+        state_tree, metrics = step_fn(state_tree, batch, rng)
+        if total_loss is None:
+            total_loss, total_tokens = metrics["loss"], metrics["ntokens"]
+        else:
+            total_loss = total_loss + metrics["loss"]
+            total_tokens = total_tokens + metrics["ntokens"]
+        if log_every and i % log_every == 1:
+            tot = float(total_tokens)
+            dt = time.time() - t0
+            log_fn(f"step {i:5d} loss/tok "
+                   f"{float(metrics['loss']) / max(float(metrics['ntokens']), 1):.4f} "
+                   f"tok/s {(tot - window_start_tokens) / max(dt, 1e-9):.1f}")
+            t0, window_start_tokens = time.time(), tot
+    if total_loss is None:
+        return state_tree, {"loss_per_token": 0.0, "tokens": 0}
+    return state_tree, {"loss_per_token": float(total_loss) / max(float(total_tokens), 1),
+                        "tokens": int(total_tokens)}

@@ -396,3 +396,115 @@ def test_device_ms_of():
     assert C.device_ms_of(prof, "w4a8_qrows_q8_kernel") == (0.125, 12)
     assert C.device_ms_of(prof, "w8a8_qrows_qout_kernel") == (0.2, 18)
     assert C.device_ms_of(None, "decode_attn_kernel") == (0, 0)
+
+
+# ------------------------------------------------------------- train phase
+
+TRAIN_TINY = dict(num_layers=1, n_pairs=1200, budget=512, parity=(4, 16), timed_steps=2,
+                  learn_batch=(16, 16))
+
+
+def test_train_corpus_follows_the_length_mix():
+    """The synthetic pairs: source lengths with BOS and EOS in the IWSLT14
+    mix (57 % of 4-24, 33 % of 25-48, 10 % of 49-72, each share within
+    0.02 at 6,000 pairs), targets within 3 tokens of their source, every
+    token in its vocabulary and none a special."""
+    from onnx_transformer_tpu_torch.data.vocab import SPECIALS, load_iwslt14_vocab
+
+    vs, vt = load_iwslt14_vocab()
+    pairs = C.train_pairs(6000, vs, vt, seed=60)
+    lens = np.array([len(s.split()) + 2 for s, _ in pairs])
+    assert lens.min() >= 4 and lens.max() <= 72
+    shares = [np.mean((lens >= lo) & (lens <= hi)) for lo, hi in ((4, 24), (25, 48), (49, 72))]
+    assert np.allclose(shares, [0.57, 0.33, 0.10], atol=0.02), shares
+    for s, t in pairs:
+        a, b = s.split(), t.split()
+        assert abs(len(a) - len(b)) <= 3 and b
+        assert all(w in vs and w not in SPECIALS for w in a)
+        assert all(w in vt and w not in SPECIALS for w in b)
+
+
+def test_train_token_budget_batch_sizes():
+    """At 12,288 tokens the buckets 16/24/32/48/72 take 768/512/384/256/168
+    pairs, and the corpus fills every bucket."""
+    from onnx_transformer_tpu_torch.data.dataset import BucketedLoader
+    from onnx_transformer_tpu_torch.data.vocab import load_iwslt14_vocab
+
+    vs, vt = load_iwslt14_vocab()
+    loader = BucketedLoader(C.train_pairs(8000, vs, vt, seed=60), vs, vt,
+                            token_budget=C.TRAIN_BUDGET, max_padding=72, seed=0)
+    assert tuple(loader.length_buckets) == C.TRAIN_BUCKETS
+    sizes = [loader._bucket_bsz(length) for length in C.TRAIN_BUCKETS]
+    assert sizes == [768, 512, 384, 256, 168]
+    assert all(b * length <= C.TRAIN_BUDGET for b, length in zip(sizes, C.TRAIN_BUCKETS))
+    shapes = [b.src.shape for b in loader]
+    assert set(shapes) == set(zip(sizes, C.TRAIN_BUCKETS))
+    assert len(shapes) >= len(C.TRAIN_BUCKETS) + 10
+
+
+def test_train_flops_and_mfu():
+    """bench.py's FLOP count at the IWSLT14-base widths (6+6 layers,
+    d_model 512, d_ff 2048, target vocabulary 4444) and the MFU against the
+    H100's dense bf16 peak, 989.4 TFLOP/s (not a TPU's)."""
+    import onnx_transformer_tpu_torch as P
+
+    cfg = P.TransformerConfig(5337, 4444)
+    enc = 6 * (4 * 512 * 512 + 2 * 512 * 2048)
+    dec = 6 * (8 * 512 * 512 + 2 * 512 * 2048)
+    assert C.train_flops_per_token(cfg) == 6 * (enc + dec + 512 * 4444) == 277_893_120
+    assert C.BF16_FLOPS_PER_S == 989.4e12
+    assert C.train_mfu(1e6, cfg) == pytest.approx(277_893_120e6 / 989.4e12, rel=1e-12)
+
+
+def test_train_phase_rehearsal(rehearsal):
+    """The train phase at full width, 1 layer and a 512-token budget: card
+    and CPU parity (both the CPU here), the recipe's warm and timed steps,
+    learning, QAT and the checkpoint resume, and no kernel launch."""
+    res = C.run_train_path(CPU, card="cpu", **TRAIN_TINY)
+    for rounding in ("on", "off"):
+        assert res[f"parity_rounding_{rounding}"] == {"loss_rel": 0.0, "grad_share": 0.0}
+    assert res["recipe"]["tokens_per_s"] > 0 and res["recipe"]["mfu"] > 0
+    assert res["learning"]["last"] < C.LEARN_SHARE * res["learning"]["first"]
+    q = res["learning"]["qat"]
+    assert len(q) == C.QAT_STEPS and q[-1] < q[0]
+
+
+def test_train_gates_catch_wrong_values():
+    """check_learning refuses a loss that does not fall far enough, or one
+    that is not finite; check_resume refuses a state one ulp off."""
+    C.check_learning([7.0, 1.0], 0.25, "x")
+    for losses in ([7.0, 2.0], [7.0, float("nan")], [float("inf"), 1.0]):
+        with pytest.raises(AssertionError, match="train x"):
+            C.check_learning(losses, 0.25, "x")
+    a = {"params": {"w": torch.ones(3)}, "step": torch.tensor(2, dtype=torch.int32)}
+    b = {"params": {"w": torch.nextafter(torch.ones(3), torch.full((3,), 2.0))},
+         "step": torch.tensor(2, dtype=torch.int32)}
+    C.check_resume(a, a)
+    with pytest.raises(AssertionError, match="differs at params/w"):
+        C.check_resume(a, b)
+
+
+@pytest.mark.parametrize("fault", ["learning", "checkpoint"])
+def test_train_gate_catches_a_wrong_run(rehearsal, monkeypatch, fault):
+    """An optimizer that does not move the weights fails the learning gate;
+    a restore that returns one weight an ulp off fails the checkpoint
+    gate."""
+    from onnx_transformer_tpu_torch.train import checkpoint as CK
+    from onnx_transformer_tpu_torch.train import trainer as TT
+
+    if fault == "learning":
+        monkeypatch.setattr(TT.AdamNoam, "update_", lambda self, params, grads, state: None)
+        match = "train learning"
+    else:
+        real = CK.restore
+
+        def off_by_an_ulp(path, template):
+            tree = real(path, template)
+            w = tree["params"]["generator"]["b"]
+            w[0] = torch.nextafter(w[0], w[0] + 1)
+            return tree
+
+        monkeypatch.setattr(CK, "restore", off_by_an_ulp)
+        match = "train checkpoint: the resumed step differs"
+    with pytest.raises(AssertionError, match=match):
+        C.run_train_path(CPU, card="cpu", **TRAIN_TINY)

@@ -63,3 +63,33 @@ def test_scalar_helpers():
     # true_div is an IEEE division, not a multiply by the reciprocal
     a = torch.from_numpy(np.random.default_rng(6).uniform(1e-3, 10, 4096).astype(np.float32))
     np.testing.assert_array_equal(TQ.true_div(a, 127).numpy(), a.numpy() / np.float32(127))
+
+
+@pytest.mark.parametrize("fn", ["absmax_scale", "quantize_weight_per_tensor"])
+def test_scale_floor_gradient_splits_at_the_tie(fn):
+    """F8: at |x|max == float32(1e-5) the floor's gradient splits in half,
+    as jnp.clip's does: d scale / d x[argmax] = 0.5 / 127, where a
+    clamp_min floor passes 1 / 127.  Elsewhere the floor passes all of it
+    (above 1e-5) or none (below).  The values are unchanged."""
+    import jax
+
+    def jax_scale(x):
+        if fn == "absmax_scale":
+            return JQ.absmax_scale(x, axis=None, keepdims=False)
+        return JQ.quantize_weight_per_tensor(x)[1]
+
+    def torch_scale(x):
+        if fn == "absmax_scale":
+            return TQ.absmax_scale(x, axis=None, keepdims=False)
+        return TQ.quantize_weight_per_tensor(x)[1]
+
+    for top in (np.float32(1e-5), np.float32(3e-5), np.float32(2e-6)):
+        x = np.array([top, -top / 4, top / 2], np.float32)
+        gj = np.asarray(jax.grad(jax_scale)(jnp.asarray(x)))
+        xt = torch.from_numpy(x).requires_grad_()
+        st = torch_scale(xt)
+        gt, = torch.autograd.grad(st, xt)
+        np.testing.assert_array_equal(st.detach().numpy(), np.asarray(jax_scale(jnp.asarray(x))))
+        np.testing.assert_array_equal(gt.numpy(), gj)
+        if top == np.float32(1e-5):
+            assert gt[0].item() == np.float32(0.5) / np.float32(127)
