@@ -68,10 +68,11 @@ Phases, each printed on its own line with its seconds:
               K3's plain version in K3's place, its agreements printed (no
               gate).  Timed, then profiled as above, with K5's and K3's
               device ms per decode summed by kernel name.
-6. int4 path  the same model and sources through ``bench.py``'s int4 row:
-              packed-int4 payloads, the W4A8 impl, and the chunk-staged decode
-              over the unpacked int4 values (max_len 72, chunk 8).  K6 must
-              launch 18 times and K7 12 times per decode, no other matmul
+6. int4 path  the same widths, weights' seed and sources, the depth cut to
+              ``SHALLOW_LAYERS`` (1 + 1) layers, through ``bench.py``'s int4
+              row: packed-int4 payloads, the W4A8 impl, and the chunk-staged
+              decode over the unpacked int4 values (max_len 72, chunk 8).  K6
+              must launch 3 and K7 2 times a layer per decode, no other matmul
               kernel; held against the same decode with the non-fused W4A8
               impl: encoder memory within atol 1e-4 / rtol 1e-5, >= 95 % of
               the tokens.  Timed, then profiled as above, with K6's and K7's
@@ -138,7 +139,27 @@ Phases, each printed on its own line with its seconds:
               must give the uninterrupted run's next step bit for bit.  No
               kernel of K1-K8 launches: training's products are plain
               ``torch.matmul``, as the JAX package's are XLA's.
-10. reference  a small model decoded on the card and on the CPU from the same
+10. export     the serve-format export (``export.serialize``) at the same widths
+              and weights, into a temporary directory: the W8A8 "pallas"
+              bundle (int8 cache, ``fused_attn``, B=8 x 72; every bundle at
+              ``SHALLOW_LAYERS`` layers: a program's trace, save and load
+              take host time by the graph node) traced with
+              ``torch.export``, saved, loaded back, and its consumer loop
+              (prefill, then 71 decode steps) equal to the eager
+              ``greedy_decode`` in tokens and in K5's and K3's launches; its
+              greedy program unrolled at max_len ``GREEDY_CUT`` equal to eager;
+              the "fused" bundle at B=128 x 72 (9,216 tokens, so K1/K2 take
+              the q/k/v and cross-K/V): the loaded encoder and prefill bit
+              for bit equal to eager, K1 3 / K2 2 launches a layer in the
+              prefill; at full depth, the QDQ ONNX graphs with and without
+              the activation scales, re-parsed, every int8 weight equal to
+              its payload; the serve
+              command line (``serving/__main__.py``) on 64 synthetic lines
+              without a checkpoint ("pallas", int8 cache, ``fused_attn``):
+              64 lines out, K3 and K5 launched.  Export seconds and sizes,
+              the loaded loop's wall time beside eager's, and the host cost
+              of an operator call beside the bare launch are printed.
+11. reference  a small model decoded on the card and on the CPU from the same
               weights, by the chunk-staged decode ("fused" mode), by the
               KV-cached decode (int8 cache, K3, "pallas" mode), and by both
               over int4 weights with ``FUSED_MIN_TOKENS`` at 1 (K6/K7): >= 95 %
@@ -165,9 +186,12 @@ from contextlib import contextmanager
 import numpy as np
 
 TOTAL_BUDGET_S = 300
+# the depth of the int4 path and of the exported bundles, cut from 6 + 6 so
+# that the command stays within TOTAL_BUDGET_S (PERF.md)
+SHALLOW_LAYERS = 1
 PHASE_LIMIT_S = {"device": 60, "build": 120, "kernels": 120, "main path": 180,
                  "serving path": 180, "int4 path": 120, "fault campaign": 60,
-                 "engine": 60, "train": 60, "reference": 60}
+                 "engine": 60, "train": 60, "export": 60, "reference": 60}
 # H100 SXM peaks at the full 700 W power limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -933,8 +957,6 @@ def run_int4_path(device, base: dict, max_len: int, chunk: int, card: str = "") 
     import torch
 
     import onnx_transformer_tpu_torch as P
-    from onnx_transformer_tpu_torch.ops.kernels import decode_attention as KA
-    from onnx_transformer_tpu_torch.ops.kernels import w8a8_matmul as KM
 
     model, sp, src, sm = (base[k] for k in ("model", "params", "src", "src_mask"))
     n = model.cfg.num_layers
@@ -943,8 +965,7 @@ def run_int4_path(device, base: dict, max_len: int, chunk: int, card: str = "") 
     lin4 = P.make_w4a8_linear_impl(pl4)
     lin4x = P.make_w4a8_linear_impl(pl4, fused=False)
     stacked4 = int4_stacked(model, sp, pl4)
-    counters = {k: getattr(KM, v) for k, v in MATMUL_COUNTERS.items()}
-    counters["attn"] = KA.decode_attention_int8
+    counters = kernel_counters()
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
 
     def decode(lin):
@@ -1436,8 +1457,6 @@ def run_engine_path(device, base: dict, card: str = "", slots: int = 512, seq: i
 
     import onnx_transformer_tpu_torch as P
     from onnx_transformer_tpu_torch.ops import layers as L
-    from onnx_transformer_tpu_torch.ops.kernels import decode_attention as KA
-    from onnx_transformer_tpu_torch.ops.kernels import w8a8_matmul as KM
 
     model = base["model"]
     cfg = model.cfg
@@ -1447,8 +1466,7 @@ def run_engine_path(device, base: dict, card: str = "", slots: int = 512, seq: i
     gen["b"] = gen["b"].clone()
     gen["b"][cfg.eos_id] += ENGINE_EOS_BIAS
     sp = {**base["params"], "generator": gen}
-    counters = {k: getattr(KM, v) for k, v in MATMUL_COUNTERS.items()}
-    counters["attn"] = KA.decode_attention_int8
+    counters = kernel_counters()
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     results = {}
     for (label, mode, extra, kind, min_same), n_req in zip(ENGINE_RUNS, requests):
@@ -1789,6 +1807,343 @@ def run_train_path(device, card: str = "", num_layers: int = 6, n_pairs: int = 8
     return out
 
 
+# "export": the serve-format bundles at the IWSLT14-base widths
+EXPORT_BUCKET = 8          # the pallas bundle's batch bucket
+EXPORT_FUSED_BUCKET = 128  # 128 x 72 = 9,216 tokens: K1/K2 take the encoder's q/k/v
+GREEDY_CUT = 2             # max_len of the exported greedy program (see PERF.md)
+SERVE_LINES = 64
+
+
+def kernel_counters() -> dict:
+    """The launch counts of K1-K8, by ``MATMUL_COUNTERS`` key and "attn"."""
+    from onnx_transformer_tpu_torch.ops.kernels import decode_attention as KA
+    from onnx_transformer_tpu_torch.ops.kernels import w8a8_matmul as KM
+
+    counters = {k: getattr(KM, v) for k, v in MATMUL_COUNTERS.items()}
+    counters["attn"] = KA.decode_attention_int8
+    return counters
+
+
+def counted_run(fn, sync):
+    """``fn()`` with every kernel's count set to 0 before it; returns its
+    result, its wall seconds and the launches of the kernels that ran."""
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    dt = time.perf_counter() - t0
+    return out, dt, {k: c.launches for k, c in counters.items() if c.launches}
+
+
+def drive_exported_loop(pre, step, params, src, sm, max_len: int, start: int = 0,
+                        pad: int = 2):
+    """The consumer's token loop over a loaded prefill and decode step:
+    prefill once, then ``max_len - 1`` steps at per-row positions, each
+    taking the argmax (as the JAX package's consumer drives its bundle)."""
+    import torch
+
+    b = src.shape[0]
+    cache = pre.call(params, src, sm)
+    ys = torch.full((b, max_len), pad, dtype=torch.int32, device=src.device)
+    ys[:, 0] = start
+    last = ys[:, :1]
+    for i in range(max_len - 1):
+        pos = torch.full((b,), i, dtype=torch.int32, device=src.device)
+        logp, cache = step.call(params, cache, last, pos, sm)
+        nxt = torch.argmax(logp, dim=-1).to(torch.int32)
+        ys[:, i + 1] = nxt
+        last = nxt[:, None]
+    return ys
+
+
+def serve_lines(n: int, vocab, seed: int) -> list:
+    """``n`` synthetic BPE source lines of the vocabulary's own tokens, at
+    the IWSLT14 length mix (EOS takes one place of the engine's 72)."""
+    rng = np.random.default_rng(seed)
+    words = vocab.itos[4:]
+    return [" ".join(words[i] for i in rng.integers(0, len(words), max(1, n_tok - 2)))
+            for n_tok in iwslt_lengths(rng, n)]
+
+
+def dispatch_cost_us(device, iters: int = 500, reps: int = 5) -> tuple[float, float]:
+    """Host microseconds per call of K5 at the decode step's shape ([512,
+    512] x [512, 512]) through its operator (``torch.ops.otk.w8a8_matmul``:
+    the dispatcher, then the CUDA implementation's launch) and through the
+    bare launch (``w8a8_gemm_launch``), ``iters`` calls enqueued back to
+    back, the median of ``reps`` such runs of each, taken in turns."""
+    import torch
+
+    from onnx_transformer_tpu_torch.ops.kernels import w8a8_matmul as KM
+
+    xq, sx, wq, sw, b = k5_inputs((512,), 512, 512, seed=5, device=device)
+    out = torch.empty((512, 512), device=device)
+    tile = KM.plan_w8a8_tile(512, 512)[0]
+    op = torch.ops.otk.w8a8_matmul
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / iters * 1e6
+
+    launches = KM.w8a8_matmul.launches
+    runs = [(per_call(lambda: op(xq, sx, wq, sw, b)),
+             per_call(lambda: KM.w8a8_gemm_launch(xq, sx, wq, sw, b, out, tile)))
+            for _ in range(reps)]
+    KM.w8a8_matmul.launches = launches
+    return tuple(statistics.median(r[i] for r in runs) for i in (0, 1))
+
+
+def check_onnx(model, params, payloads, act_scales, tmp: str) -> dict:
+    """The QDQ ONNX graphs with and without static activation scales,
+    re-parsed: every int8 weight initializer equals its payload."""
+    from onnx_transformer_tpu_torch.export import onnx_proto as OP
+    from onnx_transformer_tpu_torch.export.onnx_qdq import export_qdq_onnx
+
+    sizes = {}
+    for label, scales in (("weight-QDQ", None), ("QCDQ", act_scales)):
+        paths = export_qdq_onnx(model, params, payloads, os.path.join(tmp, label),
+                                act_scales=scales)
+        checked = 0
+        for graph, path in paths.items():
+            with open(path, "rb") as f:
+                raw = f.read()
+            sizes[f"{label} {graph}.onnx"] = len(raw)
+            parsed = OP.parse_model(raw)
+            names = [name for name in payloads if name.startswith(graph + ".")]
+            for name in names:
+                if not np.array_equal(parsed.initializers[f"{name}.weight_q"],
+                                      payloads[name]["wq"].cpu().numpy()):
+                    raise AssertionError(f"ONNX {label} {graph}: {name}'s int8 weights "
+                                         f"differ from the payload")
+            n_q = sum(n.op_type == "QuantizeLinear" for n in parsed.nodes)
+            if n_q != (len(names) if scales is not None else 0):
+                raise AssertionError(f"ONNX {label} {graph}: {n_q} activation QuantizeLinear "
+                                     f"nodes for {len(names)} linears")
+            checked += len(names)
+        if checked != len(payloads):
+            raise AssertionError(f"ONNX {label}: {checked} of {len(payloads)} weights checked")
+    print(f"export ONNX: every int8 weight initializer equals its payload "
+          f"({len(payloads)} linears); bytes {sizes}", flush=True)
+    return sizes
+
+
+def run_export_path(device, base: dict, small: dict, card: str = "",
+                    bucket: int = EXPORT_BUCKET, fused_bucket: int = EXPORT_FUSED_BUCKET,
+                    max_len: int = 72, greedy_cut: int = GREEDY_CUT,
+                    lines: int = SERVE_LINES) -> dict:
+    """The serve-format export at the model's widths, into a temporary
+    directory.  On ``small`` (``build_iwslt`` at ``SHALLOW_LAYERS`` layers:
+    tracing, saving and loading a program cost host time by the graph node,
+    so by the layer): (a) the W8A8 "pallas" bundle with the int8 cache and
+    ``fused_attn`` (encoder, prefill, decode step) at ``bucket`` sources,
+    loaded back, its consumer loop of ``max_len - 1`` steps equal to the
+    eager decode's tokens with K5 and K3 launched as often as there, and the
+    greedy program, unrolled, at max_len ``greedy_cut``, equal to eager; (b)
+    the "fused" bundle (encoder, prefill) at ``fused_bucket`` sources, where
+    K1/K2 take the q/k/v and cross-K/V: the loaded encoder's memory and the
+    loaded prefill's cross-K/V rows and scales equal eager bit for bit, K1
+    launching 3 times a layer in each and K2 2 times a layer in the prefill.
+    On ``base`` (the full depth): (c) the QDQ ONNX graphs with and without
+    the activation scales (``check_onnx``); (d) the serve command line on
+    ``lines`` synthetic lines, no checkpoint, mode "pallas" with the int8
+    cache and ``fused_attn``, at the IWSLT14-base configuration: one output
+    line each, K3 and K5 launched.  Also the host cost of an operator call
+    (``dispatch_cost_us``, on the card) and the seconds of each part."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    import onnx_transformer_tpu_torch as P
+    from onnx_transformer_tpu_torch.ops import layers as L
+    from onnx_transformer_tpu_torch.serving import __main__ as serve_cli
+
+    model, sp, payloads = small["model"], small["params"], small["payloads"]
+    cfg = model.cfg
+    n = cfg.num_layers
+    src_len = base["src"].shape[1]
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    linp = P.make_w8a8_linear_impl(payloads, mode="pallas")
+    src = make_source(bucket, src_len, cfg.src_vocab_size, seed=11, device=device)
+    sm = L.make_src_mask(src)
+    res: dict = {}
+    parts: dict = {}
+    mark = [time.perf_counter()]
+
+    def done(part):
+        now = time.perf_counter()
+        parts[part] = now - mark[0]
+        mark[0] = now
+
+    def report(bundle, path):
+        for name, seconds in bundle.seconds.items():
+            size = os.path.getsize(os.path.join(path, name))
+            print(f"export {name}: traced and saved in {seconds:.3f} s, {size} bytes",
+                  flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the pallas bundle and its consumer loop
+        out_a = os.path.join(tmp, "pallas")
+        bundle = P.export_model(model, sp, out_a, batch_sizes=(bucket,), src_len=src_len,
+                                max_len=max_len, lin=linp, mode="pallas",
+                                kv_cache_dtype="int8", fused_attn=True,
+                                graphs=("encoder", "prefill", "decode_step"))
+        report(bundle, out_a)
+        done("pallas export")
+        t0 = time.perf_counter()
+        enc, pre, step = (P.load_exported(out_a, f"{g}_b{bucket}.pt2")
+                          for g in ("encoder", "prefill", "decode_step"))
+        print(f"export pallas bundle loaded in {time.perf_counter() - t0:.3f} s", flush=True)
+        done("pallas load")
+        if not torch.equal(enc.call(sp, src, sm), model.encode(sp, src, sm, lin=linp)):
+            raise AssertionError("the loaded pallas encoder differs from eager encode")
+
+        def eager():
+            return P.greedy_decode(model, sp, src, sm, max_len, lin=linp,
+                                   kv_cache_dtype="int8", fused_attn=True, stop_at_eos=False)
+
+        def loaded():
+            return drive_exported_loop(pre, step, sp, src, sm, max_len, cfg.bos_id, cfg.pad_id)
+
+        ys_e, dt_e, launches_e = counted_run(eager, sync)
+        ys_l, dt_l, launches_l = counted_run(loaded, sync)
+        print(f"export loaded prefill + {max_len - 1} decode steps at B={bucket}: "
+              f"{dt_l:.6f} s, launches {launches_l}; eager greedy_decode {dt_e:.6f} s, "
+              f"launches {launches_e}; tokens equal {torch.equal(ys_l, ys_e)} on {card}",
+              flush=True)
+        if not torch.equal(ys_l, ys_e):
+            raise AssertionError(f"the loaded pallas programs' tokens differ from eager on "
+                                 f"{(ys_l != ys_e).sum().item()} of {ys_e.numel()}")
+        want = {"w8a8": 8 * n + 8 * n * (max_len - 1), "attn": 2 * n * (max_len - 1)}
+        if launches_l != launches_e or (cuda and launches_l != want):
+            raise AssertionError(f"loaded loop launches {launches_l}, eager {launches_e}, "
+                                 f"expected {want}")
+        res["pallas"] = {"seconds": dt_l, "eager_seconds": dt_e, "launches": launches_l}
+        done("pallas loops")
+
+        out_g = os.path.join(tmp, "greedy")
+        bundle = P.export_model(model, sp, out_g, batch_sizes=(bucket,), src_len=src_len,
+                                max_len=greedy_cut, lin=linp, mode="pallas",
+                                kv_cache_dtype="int8", fused_attn=True, graphs=("greedy",))
+        report(bundle, out_g)
+        done("greedy export")
+        greedy = P.load_exported(out_g, f"greedy_b{bucket}.pt2")
+        done("greedy load")
+        ys_g, dt_g, launches_g = counted_run(lambda: greedy.call(sp, src, sm), sync)
+        live = P.greedy_decode(model, sp, src, sm, greedy_cut, lin=linp, kv_cache_dtype="int8",
+                               fused_attn=True)
+        print(f"export greedy_b{bucket} (max_len {greedy_cut}, unrolled): {dt_g:.6f} s, "
+              f"launches {launches_g}, tokens equal {torch.equal(ys_g, live)}", flush=True)
+        if not torch.equal(ys_g, live):
+            raise AssertionError("the loaded greedy program's tokens differ from eager")
+        res["greedy_seconds"] = bundle.seconds
+        done("greedy run")
+
+        # (b) the fused bundle: K1/K2 in the exported encoder and prefill
+        linf = P.make_w8a8_linear_impl(payloads, mode="fused")
+        srcf = make_source(fused_bucket, src_len, cfg.src_vocab_size, seed=12, device=device)
+        smf = L.make_src_mask(srcf)
+        out_b = os.path.join(tmp, "fused")
+        bundle = P.export_model(model, sp, out_b, batch_sizes=(fused_bucket,),
+                                src_len=src_len, max_len=max_len, lin=linf, mode="fused",
+                                kv_cache_dtype="int8", graphs=("encoder", "prefill"))
+        report(bundle, out_b)
+        done("fused export")
+        encf, pref = (P.load_exported(out_b, f"{g}_b{fused_bucket}.pt2")
+                      for g in ("encoder", "prefill"))
+        mem_l, _, launches_enc = counted_run(lambda: encf.call(sp, srcf, smf), sync)
+        cache_l, _, launches_pre = counted_run(lambda: pref.call(sp, srcf, smf), sync)
+        mem_e = model.encode(sp, srcf, smf, lin=linf)
+        cache_e = model.init_cache(sp, mem_e, max_len, lin=linf, cache_dtype="int8")
+        keys = ("cross_k", "cross_v", "cross_k_scale", "cross_v_scale")
+        cross_equal = all(torch.equal(lc_l[k], lc_e[k]) for lc_l, lc_e in
+                          zip(cache_l["layers"], cache_e["layers"]) for k in keys)
+        print(f"export fused bundle at B={fused_bucket} x {src_len}: loaded encoder launches "
+              f"{launches_enc}, memory equal {torch.equal(mem_l, mem_e)} (max abs diff "
+              f"{(mem_l - mem_e).abs().max().item()}); loaded prefill launches "
+              f"{launches_pre}, cross-K/V rows and scales equal {cross_equal}", flush=True)
+        if not torch.equal(mem_l, mem_e) or not cross_equal:
+            raise AssertionError("the loaded fused programs differ from eager")
+        if cuda and (launches_enc != {"qout": 3 * n}
+                     or launches_pre != {"qout": 3 * n, "q8": 2 * n}):
+            raise AssertionError(f"the loaded fused programs launched {launches_enc} and "
+                                 f"{launches_pre}")
+        res["fused"] = {"encoder": launches_enc, "prefill": launches_pre}
+        done("fused load and runs")
+
+        # (c) ONNX, at the full depth
+        res["onnx_bytes"] = check_onnx(base["model"], base["params"], base["payloads"],
+                                       P.load_reference_scales(), tmp)
+        done("onnx")
+
+        # (d) the serve command line
+        path = os.path.join(tmp, "src.bpe")
+        with open(path, "w") as f:
+            f.write("\n".join(serve_lines(lines, serve_cli.load_iwslt14_vocab()[0], seed=13)))
+        argv = ["--mode", "pallas", "--kv-dtype", "int8", "--fused-attn", "--input", path,
+                "--ckpt", os.path.join(tmp, "absent.npz"), "--src-len", str(src_len),
+                "--max-len", str(max_len), "--platform", device.type]
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc, dt_s, launches_s = counted_run(lambda: serve_cli.main(argv), sync)
+        out_lines = printed.getvalue().splitlines()
+        print(f"export serve CLI: {len(out_lines)} lines for {lines} in {dt_s:.3f} s, "
+              f"launches {launches_s}", flush=True)
+        if rc != 0 or len(out_lines) != lines:
+            raise AssertionError(f"the serve CLI returned {rc} with {len(out_lines)} lines")
+        if cuda and not (launches_s.get("attn") and launches_s.get("w8a8")):
+            raise AssertionError(f"the serve CLI launched {launches_s}, not K3 and K5")
+        res["serve"] = {"seconds": dt_s, "launches": launches_s}
+        done("serve CLI")
+    if cuda:
+        us_op, us_bare = dispatch_cost_us(device)
+        print(f"export operator dispatch: K5 at [512,512]x[512,512] {us_op:.3f} us of host "
+              f"time a call through torch.ops.otk, {us_bare:.3f} us through the bare launch "
+              f"on {card}", flush=True)
+        res["dispatch_us"] = (us_op, us_bare)
+    done("dispatch")
+    print("export seconds by part: " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()),
+          flush=True)
+    return res
+
+
+def time_greedy_export(max_len: int = 72, bucket: int = EXPORT_BUCKET) -> float:
+    """The greedy program's export seconds (trace and save) at the
+    IWSLT14-base configuration, full depth, W8A8 "pallas" with the int8
+    cache and ``fused_attn``, for ``max_len`` (the unrolled program grows
+    with it).  Not a phase of ``main``: run it alone on the card,
+    ``python3 -c 'import chip_smoke as C; C.time_greedy_export()'``."""
+    import tempfile
+
+    import torch
+
+    import onnx_transformer_tpu_torch as P
+
+    device = torch.device("cuda")
+    base = build_iwslt(device, num_layers=6, batch=bucket, src_len=72)
+    linp = P.make_w8a8_linear_impl(base["payloads"], mode="pallas")
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle = P.export_model(base["model"], base["params"], tmp, batch_sizes=(bucket,),
+                                src_len=72, max_len=max_len, lin=linp, mode="pallas",
+                                kv_cache_dtype="int8", fused_attn=True, graphs=("greedy",))
+        name = f"greedy_b{bucket}.pt2"
+        size = os.path.getsize(os.path.join(tmp, name))
+    seconds = bundle.seconds[name]
+    print(f"export {name} at max_len {max_len}, 6+6 layers: traced and saved in "
+          f"{seconds:.3f} s, {size} bytes on {card_line()}", flush=True)
+    return seconds
+
+
 def run_reference(device) -> float:
     """The port's decode on ``device`` against the same decode on the CPU,
     small model, same weights."""
@@ -1901,7 +2256,8 @@ def main() -> int:
         serve_res = run_serving_path(device, base, max_len=72, card=card)
 
     with phase("int4 path"):
-        int4_res = run_int4_path(device, base, max_len=72, chunk=8, card=card)
+        shallow = build_iwslt(device, num_layers=SHALLOW_LAYERS, batch=512, src_len=72)
+        int4_res = run_int4_path(device, shallow, max_len=72, chunk=8, card=card)
 
     with phase("fault campaign"):
         run_fault_campaign(device, base, card=card)
@@ -1911,6 +2267,9 @@ def main() -> int:
 
     with phase("train"):
         run_train_path(device, card=card)
+
+    with phase("export"):
+        run_export_path(device, base, shallow, card=card)
 
     with phase("reference"):
         run_reference(device)

@@ -36,10 +36,21 @@ package's, so a train state saved by either package resumes in the other.
 Training runs no kernel: its products are plain ``torch.matmul``, as the
 JAX package's are XLA's.
 
+Export (``export``): ``export_model`` traces the encoder, the greedy
+decode, the prefill and the decode step per batch bucket with
+``torch.export`` into a bundle that ``load_exported`` loads without the
+model code, and ``export_qdq_onnx`` writes the QDQ ONNX graphs;
+``utils.torch_compat`` converts the reference's ``state_dict`` both ways,
+``utils.profiling`` holds span timers and ``torch.profiler`` hooks.  The
+export and serve command lines are ``python -m
+onnx_transformer_tpu_torch.export`` and ``python -m
+onnx_transformer_tpu_torch.serving``.
+
 K4 and K8 (the per-token quantize fused into K5's product, over int8 or
 packed-int4 weights) have no caller on these paths, as in the JAX package.
-All eight are CUDA kernels hand-written for Hopper; on CPU tensors each
-wrapper takes its plain PyTorch version.
+All eight are CUDA kernels hand-written for Hopper, each a registered
+operator (``torch.ops.otk.*``), so that exported programs carry them; on
+CPU tensors each operator runs its plain PyTorch version.
 """
 
 import torch
@@ -69,6 +80,12 @@ from onnx_transformer_tpu_torch.data.vocab import (  # noqa: E402
     save_vocab,
 )
 from onnx_transformer_tpu_torch.device import resolve_device  # noqa: E402
+from onnx_transformer_tpu_torch.export.onnx_qdq import export_qdq_onnx  # noqa: E402
+from onnx_transformer_tpu_torch.export.serialize import (  # noqa: E402
+    export_model,
+    load_exported,
+    load_manifest,
+)
 from onnx_transformer_tpu_torch.models.stacked_decode import (  # noqa: E402
     build_stacked,
     greedy_decode_chunked,
@@ -128,6 +145,11 @@ from onnx_transformer_tpu_torch.train.trainer import (  # noqa: E402
     make_train_step,
     run_epoch,
 )
+from onnx_transformer_tpu_torch.utils.torch_compat import (  # noqa: E402
+    from_torch_state_dict,
+    load_reference_checkpoint,
+    to_torch_state_dict,
+)
 
 __all__ = [
     "Transformer", "TransformerConfig", "default_linear", "build_stacked",
@@ -142,5 +164,7 @@ __all__ = [
     "EngineStalledError", "Batch", "BucketedLoader", "collate", "load_pairs", "load_split",
     "unbpe", "BOS_ID", "EOS_ID", "PAD_ID", "UNK_ID", "Vocab", "build_vocab",
     "load_iwslt14_vocab", "load_vocab", "save_vocab", "TrainState", "batch_to_arrays",
-    "init_state", "make_optimizer", "make_train_step", "run_epoch",
+    "init_state", "make_optimizer", "make_train_step", "run_epoch", "export_model",
+    "load_exported", "load_manifest", "export_qdq_onnx", "from_torch_state_dict",
+    "to_torch_state_dict", "load_reference_checkpoint",
 ]

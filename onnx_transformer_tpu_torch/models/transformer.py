@@ -70,9 +70,13 @@ def default_linear(name: str, x: torch.Tensor, w: torch.Tensor,
 
 def _scalar_index(idx):
     """A Python int for a scalar write index (int or 0-dim tensor), else
-    the [B] tensor unchanged."""
+    the [B] tensor unchanged.  A trace cannot read a 0-dim tensor's value:
+    a traced step takes [B] positions."""
     if isinstance(idx, torch.Tensor) and idx.ndim == 1:
         return idx
+    if isinstance(idx, torch.Tensor) and torch.compiler.is_compiling():
+        raise ValueError("a traced decode step takes a [B] tensor of positions, "
+                         "not a 0-dim one")
     return int(idx)
 
 
@@ -88,16 +92,19 @@ def _row_scatter(buf: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
                  time_axis: int) -> torch.Tensor:
     """buf[b, ..., idx[b], ...] = new[b] along ``time_axis`` (1 or 2), in
     place.  Negative positions count from the end; positions outside
-    [-T, T) drop the row's write, as the JAX scatter's ``mode="drop"``."""
+    [-T, T) drop the row's write, as the JAX scatter's ``mode="drop"``: such
+    a row writes back what its clamped position holds, so that every shape
+    is static (a trace holds no size that depends on the data)."""
     t = buf.shape[time_axis]
     idx = idx.to(buf.device).long()
     idx = torch.where(idx < 0, idx + t, idx)
-    keep = (idx >= 0) & (idx < t)
-    rows = torch.arange(buf.shape[0], device=buf.device)[keep]
+    keep = ((idx >= 0) & (idx < t)).view(-1, *[1] * (new.ndim - 1))
+    at = idx.clamp(0, t - 1)
+    rows = torch.arange(buf.shape[0], device=buf.device)
     if time_axis == 1:
-        buf[rows, idx[keep]] = new[keep]
+        buf[rows, at] = torch.where(keep, new, buf[rows, at])
     else:
-        buf[rows, :, idx[keep]] = new[keep]
+        buf[rows, :, at] = torch.where(keep, new, buf[rows, :, at])
     return buf
 
 

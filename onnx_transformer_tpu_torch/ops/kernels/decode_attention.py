@@ -1,9 +1,11 @@
 """K3: single-query attention over an int8 merged-head K/V cache (port of
 ``decode_attention_int8`` in ``onnx_transformer_tpu/ops/pallas/attention.py``).
 
-The wrapper launches the CUDA kernel of ``csrc/decode_attention.cu`` for a
-CUDA tensor and counts the launch in ``decode_attention_int8.launches``; for
-a CPU tensor it takes the plain version ``decode_attention_int8_ref``, which
+The kernel is the registered operator ``torch.ops.otk.decode_attention_int8``
+(see ``w8a8_matmul``): its CUDA implementation launches the kernel of
+``csrc/decode_attention.cu`` and counts the launch in
+``decode_attention_int8.launches``, its CPU implementation is the plain
+version ``decode_attention_int8_ref``, which
 follows the kernel's contract step for step (scale after the dot,
 probabilities rounded as ``round(p*127)/127``) and which the card check
 holds the kernel against (rtol 1e-5, atol 1e-4: the sums run in another
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from onnx_transformer_tpu_torch.ops.kernels.build import launch
+from onnx_transformer_tpu_torch.ops.kernels.w8a8_matmul import OP_NAMESPACE
 from onnx_transformer_tpu_torch.ops.layers import NEG_INF, quantize_probs
 from onnx_transformer_tpu_torch.quant.core import true_div
 
@@ -118,8 +121,12 @@ def decode_attention_int8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     for name, tensor in (("q", q), ("vq", vq), ("ks", ks), ("vs", vs), ("mask", mask)):
         if tensor.device != kq.device:
             raise ValueError(f"{name} is on {tensor.device}, kq on {kq.device}")
-    if not kq.is_cuda:
-        return decode_attention_int8_ref(q, kq, ks, vq, vs, mask, num_heads, quantize)
+    return _OP(q, kq, ks, vq, vs, mask, num_heads, quantize)
+
+
+def _cuda(q, kq, ks, vq, vs, mask, num_heads: int, quantize: bool) -> torch.Tensor:
+    """The CUDA implementation of K3's operator."""
+    b, t, d = kq.shape
     ops = [x.contiguous() for x in (q, kq, ks, vq, vs)]
     m8 = mask.to(torch.bool).contiguous().view(torch.uint8)
     out = torch.empty((b, d), dtype=torch.float32, device=kq.device)
@@ -132,4 +139,11 @@ def decode_attention_int8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     return out
 
 
+_OP = torch.library.custom_op(
+    f"{OP_NAMESPACE}::decode_attention_int8", decode_attention_int8_ref, mutates_args=(),
+    device_types="cpu", schema="(Tensor q, Tensor kq, Tensor ks, Tensor vq, Tensor vs, "
+    "Tensor mask, int num_heads, bool quantize) -> Tensor")
+_OP.register_kernel("cuda")(_cuda)
+_OP.register_fake(lambda q, kq, ks, vq, vs, mask, num_heads, quantize:
+                  q.new_empty((kq.shape[0], kq.shape[2]), dtype=torch.float32))
 decode_attention_int8.launches = 0

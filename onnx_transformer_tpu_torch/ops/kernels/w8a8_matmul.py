@@ -18,11 +18,17 @@
   each CTA quantizes a block of x rows once and sweeps N, its configuration
   and persistent grid chosen from the shape by :func:`plan_quant_gemm`.
 
-Each wrapper launches its CUDA kernel for a CUDA tensor and counts the
-launch in its ``launches`` attribute; for a CPU tensor it takes the plain
-PyTorch version (``*_ref``) beside it, which the card check also holds the
-kernel against, bit for bit.  Weight operands (``wq``/``wp``, ``sw``, ``b``)
-must be contiguous and on the input's device; the input is made contiguous.
+Each kernel is a registered PyTorch operator, ``torch.ops.otk.<wrapper
+name>``, so that a traced and exported program (``export.serialize``)
+carries it: its CUDA implementation launches the kernel and counts the
+launch in the wrapper's ``launches`` attribute, its CPU implementation is
+the plain PyTorch version (``*_ref``) beside it, which the card check also
+holds the kernel against, bit for bit, and its fake implementation gives
+the outputs' shapes and dtypes to a trace.  The wrappers are the entry
+points: they check their arguments (on fake tensors too), then call the
+operator on the 2-D operands.  Weight operands (``wq``/``wp``, ``sw``,
+``b``) must be contiguous and on the input's device; the input is made
+contiguous.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 from onnx_transformer_tpu_torch.ops.kernels.build import launch
 from onnx_transformer_tpu_torch.quant.core import act_scale_per_token, quantize, unpack_int4
 
+OP_NAMESPACE = "otk"   # the kernels' operators: torch.ops.otk.<wrapper name>
 MAX_KN = 2048      # K1/K2/K6/K7: the TPU kernels' single-block limit on K and N
 MAX_K_W4A8 = 4096  # K8: the TPU kernel's limit on K
 
@@ -273,50 +280,136 @@ def _ptrs(**tensors) -> list[int]:
     return [t.data_ptr() for t in tensors.values()]
 
 
-def _qout(fn, entry: str, ref, x, wq, sw, b, packed: bool):
-    x2, n, b = _check(x, wq, sw, b, packed)
-    lead = x.shape[:-1]
-    if not x.is_cuda:
-        return ref(x2, wq, sw, b).reshape(*lead, n)
-    x2 = x2.contiguous()
-    m, k = x2.shape
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m:
-        launch(entry, x.device, *_ptrs(x=x2, wq=wq, sw=sw, b=b), out.data_ptr(), m, k, n,
-               *plan_w8a8_qrows(m, k, n, packed)[:2])
-        fn.launches += 1
-    return out.reshape(*lead, n)
+def _count(name: str) -> None:
+    """One more launch on the count of the wrapper ``name`` of this module
+    (its ``launches`` attribute), from inside an operator's CUDA
+    implementation: an eager call and a loaded exported program count
+    alike."""
+    globals()[name].launches += 1
 
 
-def _q8(fn, entry: str, ref, x, wq, sw, b, packed: bool):
+def _qout_cuda(wrapper: str, entry: str, packed: bool):
+    """The CUDA implementation of K1's (K6's) operator: x [M, K] -> f32 [M, N]."""
+    def impl(x, wq, sw, b):
+        x = x.contiguous()
+        m, k = x.shape
+        n = wq.shape[1]
+        out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+        if m:
+            launch(entry, x.device, *_ptrs(x=x, wq=wq, sw=sw, b=b), out.data_ptr(), m, k, n,
+                   *plan_w8a8_qrows(m, k, n, packed)[:2])
+            _count(wrapper)
+        return out
+    return impl
+
+
+def _q8_cuda(wrapper: str, entry: str, packed: bool):
+    """The CUDA implementation of K2's (K7's) operator: x [M, K] -> (int8
+    [M, N], f32 [M, 1])."""
+    def impl(x, wq, sw, b):
+        x = x.contiguous()
+        m, k = x.shape
+        n = wq.shape[1]
+        q = torch.empty((m, n), dtype=torch.int8, device=x.device)
+        s = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+        if m:
+            launch(entry, x.device, *_ptrs(x=x, wq=wq, sw=sw, b=b), q.data_ptr(),
+                   s.data_ptr(), m, k, n, *plan_w8a8_qrows(m, k, n, packed)[:2])
+            _count(wrapper)
+        return q, s
+    return impl
+
+
+def _quant_gemm_cuda(wrapper: str, packed: bool):
+    """The CUDA implementation of K4's (K8's) operator: x [M, K] -> f32 [M, N]."""
+    def impl(x, wq, sw, b):
+        x = x.contiguous()
+        out = torch.empty((x.shape[0], wq.shape[1]), dtype=torch.float32, device=x.device)
+        if out.numel():
+            quant_gemm_launch(x, wq, sw, b, out, packed)
+            _count(wrapper)
+        return out
+    return impl
+
+
+def _w8a8_cuda(xq, sx, wq, sw, b):
+    """The CUDA implementation of K5's operator: xq int8 [M, K], sx f32 [M]
+    -> f32 [M, N]."""
+    xq, sx = xq.contiguous(), sx.contiguous()
+    m = xq.shape[0]
+    out = torch.empty((m, wq.shape[1]), dtype=torch.float32, device=xq.device)
+    if m:
+        w8a8_gemm_launch(xq, sx, wq, sw, b, out, plan_w8a8_tile(m, wq.shape[1])[0])
+        _count("w8a8_matmul")
+    return out
+
+
+def _rows_fake(x, wq, sw, b):
+    return x.new_empty((x.shape[0], wq.shape[1]), dtype=torch.float32)
+
+
+def _q8_fake(x, wq, sw, b):
+    return (x.new_empty((x.shape[0], wq.shape[1]), dtype=torch.int8),
+            x.new_empty((x.shape[0], 1), dtype=torch.float32))
+
+
+def _w8a8_fake(xq, sx, wq, sw, b):
+    return xq.new_empty((xq.shape[0], wq.shape[1]), dtype=torch.float32)
+
+
+def _register(name: str, plain, cuda, fake, schema: str):
+    """``otk::name``: the plain version on the CPU, ``cuda`` on the card,
+    ``fake`` for tracing (the outputs' shapes and dtypes)."""
+    op = torch.library.custom_op(f"{OP_NAMESPACE}::{name}", plain, mutates_args=(),
+                                 device_types="cpu", schema=schema)
+    op.register_kernel("cuda")(cuda)
+    op.register_fake(fake)
+    return op
+
+
+_ROWS = "(Tensor x, Tensor wq, Tensor sw, Tensor b) -> Tensor"
+_OPS = {
+    "quant_w8a8_matmul_qout": _register(
+        "quant_w8a8_matmul_qout", quant_w8a8_matmul_qout_ref,
+        _qout_cuda("quant_w8a8_matmul_qout", "quant_w8a8_qout", False), _rows_fake, _ROWS),
+    "quant_w8a8_matmul_q8": _register(
+        "quant_w8a8_matmul_q8", quant_w8a8_matmul_q8_ref,
+        _q8_cuda("quant_w8a8_matmul_q8", "quant_w8a8_q8", False), _q8_fake,
+        "(Tensor x, Tensor wq, Tensor sw, Tensor b) -> (Tensor, Tensor)"),
+    "quant_w4a8_matmul_qout": _register(
+        "quant_w4a8_matmul_qout", quant_w4a8_matmul_qout_ref,
+        _qout_cuda("quant_w4a8_matmul_qout", "quant_w4a8_qout", True), _rows_fake, _ROWS),
+    "quant_w4a8_matmul_q8": _register(
+        "quant_w4a8_matmul_q8", quant_w4a8_matmul_q8_ref,
+        _q8_cuda("quant_w4a8_matmul_q8", "quant_w4a8_q8", True), _q8_fake,
+        "(Tensor x, Tensor wq, Tensor sw, Tensor b) -> (Tensor, Tensor)"),
+    "quant_w8a8_matmul": _register(
+        "quant_w8a8_matmul", quant_w8a8_matmul_ref,
+        _quant_gemm_cuda("quant_w8a8_matmul", False), _rows_fake, _ROWS),
+    "quant_w4a8_matmul": _register(
+        "quant_w4a8_matmul", quant_w4a8_matmul_ref,
+        _quant_gemm_cuda("quant_w4a8_matmul", True), _rows_fake, _ROWS),
+    "w8a8_matmul": _register(
+        "w8a8_matmul", w8a8_matmul_ref, _w8a8_cuda, _w8a8_fake,
+        "(Tensor xq, Tensor sx, Tensor wq, Tensor sw, Tensor b) -> Tensor"),
+}
+
+
+def _qout(name: str, x, wq, sw, b, packed: bool):
+    x2, n, b = _check(x, wq, sw, b, packed)
+    return _OPS[name](x2, wq, sw, b).reshape(*x.shape[:-1], n)
+
+
+def _q8(name: str, x, wq, sw, b, packed: bool):
     x2, n, b = _check(x, wq, sw, b, packed)
     lead = x.shape[:-1]
-    if not x.is_cuda:
-        q, s = ref(x2, wq, sw, b)
-        return q.reshape(*lead, n), s.reshape(*lead, 1)
-    x2 = x2.contiguous()
-    m, k = x2.shape
-    q = torch.empty((m, n), dtype=torch.int8, device=x.device)
-    s = torch.empty((m, 1), dtype=torch.float32, device=x.device)
-    if m:
-        launch(entry, x.device, *_ptrs(x=x2, wq=wq, sw=sw, b=b), q.data_ptr(), s.data_ptr(),
-               m, k, n, *plan_w8a8_qrows(m, k, n, packed)[:2])
-        fn.launches += 1
+    q, s = _OPS[name](x2, wq, sw, b)
     return q.reshape(*lead, n), s.reshape(*lead, 1)
 
 
-def _quant_gemm(fn, ref, x, wq, sw, b, packed: bool, max_k: int | None):
+def _quant_gemm(name: str, x, wq, sw, b, packed: bool, max_k: int | None):
     x2, n, b = _check(x, wq, sw, b, packed, max_k=max_k, max_n=None)
-    lead = x.shape[:-1]
-    if not x.is_cuda:
-        return ref(x2, wq, sw, b).reshape(*lead, n)
-    x2 = x2.contiguous()
-    m, k = x2.shape
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m and n:
-        quant_gemm_launch(x2, wq, sw, b, out, packed)
-        fn.launches += 1
-    return out.reshape(*lead, n)
+    return _OPS[name](x2, wq, sw, b).reshape(*x.shape[:-1], n)
 
 
 @functools.cache
@@ -341,46 +434,40 @@ def quant_w8a8_matmul_qout(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
                            b: torch.Tensor | None = None) -> torch.Tensor:
     """K1: x f32 [..., K] -> f32 [..., N] = per-token fake-quant of
     ``float(quantize(x) @ wq) * (sx * sw) + b``; K, N <= 2048."""
-    return _qout(quant_w8a8_matmul_qout, "quant_w8a8_qout", quant_w8a8_matmul_qout_ref,
-                 x, wq, sw, b, packed=False)
+    return _qout("quant_w8a8_matmul_qout", x, wq, sw, b, packed=False)
 
 
 def quant_w8a8_matmul_q8(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
                          b: torch.Tensor | None = None):
     """K2: x f32 [..., K] -> (int8 [..., N], f32 [..., 1]): the output rows
     quantized per token, and their scales; K, N <= 2048."""
-    return _q8(quant_w8a8_matmul_q8, "quant_w8a8_q8", quant_w8a8_matmul_q8_ref,
-               x, wq, sw, b, packed=False)
+    return _q8("quant_w8a8_matmul_q8", x, wq, sw, b, packed=False)
 
 
 def quant_w4a8_matmul_qout(x: torch.Tensor, wp: torch.Tensor, sw: torch.Tensor,
                            b: torch.Tensor | None = None) -> torch.Tensor:
     """K6: K1 over packed-int4 weights wp uint8 [K/2, N]; K, N <= 2048."""
-    return _qout(quant_w4a8_matmul_qout, "quant_w4a8_qout", quant_w4a8_matmul_qout_ref,
-                 x, wp, sw, b, packed=True)
+    return _qout("quant_w4a8_matmul_qout", x, wp, sw, b, packed=True)
 
 
 def quant_w4a8_matmul_q8(x: torch.Tensor, wp: torch.Tensor, sw: torch.Tensor,
                          b: torch.Tensor | None = None):
     """K7: K2 over packed-int4 weights wp uint8 [K/2, N]; K, N <= 2048."""
-    return _q8(quant_w4a8_matmul_q8, "quant_w4a8_q8", quant_w4a8_matmul_q8_ref,
-               x, wp, sw, b, packed=True)
+    return _q8("quant_w4a8_matmul_q8", x, wp, sw, b, packed=True)
 
 
 def quant_w8a8_matmul(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
                       b: torch.Tensor | None = None) -> torch.Tensor:
     """K4: x f32 [..., K] -> f32 [..., N] = ``float(quantize(x) @ wq) *
     (sx * sw) + b`` with the per-token scale of the whole row; any K, N."""
-    return _quant_gemm(quant_w8a8_matmul, quant_w8a8_matmul_ref, x, wq, sw, b, packed=False,
-                       max_k=None)
+    return _quant_gemm("quant_w8a8_matmul", x, wq, sw, b, packed=False, max_k=None)
 
 
 def quant_w4a8_matmul(x: torch.Tensor, wp: torch.Tensor, sw: torch.Tensor,
                       b: torch.Tensor | None = None) -> torch.Tensor:
     """K8: K4 over packed-int4 weights wp uint8 [K/2, N]; K even and
     <= 4096, any N."""
-    return _quant_gemm(quant_w4a8_matmul, quant_w4a8_matmul_ref, x, wp, sw, b, packed=True,
-                       max_k=MAX_K_W4A8)
+    return _quant_gemm("quant_w4a8_matmul", x, wp, sw, b, packed=True, max_k=MAX_K_W4A8)
 
 
 def w8a8_matmul(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
@@ -396,16 +483,7 @@ def w8a8_matmul(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
         raise ValueError(f"sx must be float32 {tuple(lead)}, got {sx.dtype} {tuple(sx.shape)}")
     if sx.device != xq.device:
         raise ValueError(f"sx is on {sx.device}, xq on {xq.device}")
-    xq2, sx1 = xq.reshape(-1, k), sx.reshape(-1)
-    if not xq.is_cuda:
-        return w8a8_matmul_ref(xq2, sx1, wq, sw, b).reshape(*lead, n)
-    xq2, sx1 = xq2.contiguous(), sx1.contiguous()
-    m = xq2.shape[0]
-    out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
-    if m:
-        w8a8_gemm_launch(xq2, sx1, wq, sw, b, out, plan_w8a8_tile(m, n)[0])
-        w8a8_matmul.launches += 1
-    return out.reshape(*lead, n)
+    return _OPS["w8a8_matmul"](xq.reshape(-1, k), sx.reshape(-1), wq, sw, b).reshape(*lead, n)
 
 
 def w8a8_gemm_launch(xq2, sx1, wq, sw, b, out, tile: int) -> None:

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from onnx_transformer_tpu_torch.quant.core import _const, ste_round, true_div
+from onnx_transformer_tpu_torch.quant.core import _const, outside_trace, ste_round, true_div
 
 TapDict = Optional[dict]
 InjectDict = Optional[dict]
@@ -100,8 +100,10 @@ def _pe_table(max_len: int, d_model: int) -> np.ndarray:
 @lru_cache(maxsize=8)
 def pe_rows(max_len: int, d_model: int, device: torch.device,
             dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """The sinusoidal table as a tensor on ``device``, copied there once."""
-    return torch.from_numpy(_pe_table(max_len, d_model)).to(device=device, dtype=dtype)
+    """The sinusoidal table as a tensor on ``device``, copied there once
+    (outside any trace: a traced program takes it as a constant)."""
+    return outside_trace(lambda: torch.from_numpy(_pe_table(max_len, d_model)).to(
+        device=device, dtype=dtype))
 
 
 def positional_encoding(x: torch.Tensor, offset=0, max_len: int = 5000) -> torch.Tensor:

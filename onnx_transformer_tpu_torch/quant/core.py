@@ -28,9 +28,23 @@ import torch
 SCALE_FLOOR = 1e-5
 
 
+def outside_trace(make) -> torch.Tensor:
+    """``make()``, run as plain eager code even while ``torch.export`` (or
+    ``torch.compile``) traces the caller: the tensor it builds is a real one,
+    not a traced (fake) one, so that a cache may keep it for later calls and
+    later traces, which take it as a constant of their program."""
+    if not torch.compiler.is_compiling():
+        return make()
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.fx.experimental.proxy_tensor import disable_proxy_modes_tracing
+
+    with unset_fake_temporarily(), disable_proxy_modes_tracing():
+        return make()
+
+
 @lru_cache(maxsize=64)
 def _const(value: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    return torch.full((), value, dtype=dtype, device=device)
+    return outside_trace(lambda: torch.full((), value, dtype=dtype, device=device))
 
 
 def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
