@@ -78,8 +78,9 @@ Phases, each printed on its own line with its seconds:
               the tokens.  Timed, then profiled as above, with K6's and K7's
               device ms per decode summed by kernel name.
 7. fault campaign  the reference system's pipeline at the same widths and
-              weights: activation scales calibrated over two synthetic
-              batches of B=32 x 72 through ``forward(..., taps=...)`` (96
+              weights' seed, the depth cut to ``SHALLOW_LAYERS`` (1 + 1)
+              layers: activation scales calibrated over two synthetic
+              batches of B=32 x 72 through ``forward(..., taps=...)`` (16 a layer,
               finite vectors, positive but for ReLU channels that stay 0;
               the first batch held to the same calibration on the CPU within
               rtol 1e-4 with the model's 1/127 probability rounding off on
@@ -121,7 +122,31 @@ Phases, each printed on its own line with its seconds:
               tokens/s, requests/s, occupancy, starved and gated slots, of a
               cold engine's two waves; the lockstep decode's useful tokens/s;
               E1 profiled once more.
-9. train      training at the same widths, weights from a seed, over
+9. parallel   the JAX engine's tensor-parallel configuration (weights and
+              the KV cache sharded over a model axis, continuous batching) at
+              the same widths and weights' seed, 2 + 2 layers (``TP_ENGINE``),
+              W8A8 "pallas", int8
+              cache, ``fused_attn`` asked for (a mesh drops it with a
+              warning), 32 slots, src_len = max_len = 72, chunk 12, buckets
+              24/48/72, 64 requests of IWSLT14's length mix, the EOS logit
+              raised as in "engine": the one-device engine without
+              ``fused_attn`` as the reference, a world of one rank over nccl
+              (``make_mesh(model=1)``, in this process), and two ranks
+              sharing the one card through gloo (``parallel.launch``,
+              ``make_mesh(data=1, model=2)``; nccl refuses two ranks on one
+              card).  Gates: every request back once with at most 71
+              tokens; both ranks' tokens and logits identical; the tokens of
+              each mesh run equal the reference's, request for request; the
+              logits of a few lockstep steps at the engine's 32 rows
+              bit-equal to one device's; K5 5 launches a layer a decode step
+              and 6 a layer a prefill on each rank (``tp_expected``), no
+              other kernel; each rank's KV bytes half the reference's.
+              Printed: useful tokens/s beside the reference's, the
+              collectives a step and their host share,
+              ``max_memory_allocated`` a rank, the logits' largest
+              difference from one device's at 8 rows.  Not a multi-card
+              number.
+10. train     training at the same widths, weights from a seed, over
               synthetic BPE-like pairs of the vocabularies' own tokens at the
               IWSLT14 length mix: one f32, dropout-0 loss and gradient at
               B=8 x 72 on the card and on the CPU from the same params and
@@ -139,7 +164,7 @@ Phases, each printed on its own line with its seconds:
               must give the uninterrupted run's next step bit for bit.  No
               kernel of K1-K8 launches: training's products are plain
               ``torch.matmul``, as the JAX package's are XLA's.
-10. export     the serve-format export (``export.serialize``) at the same widths
+11. export     the serve-format export (``export.serialize``) at the same widths
               and weights, into a temporary directory: the W8A8 "pallas"
               bundle (int8 cache, ``fused_attn``, B=8 x 72; every bundle at
               ``SHALLOW_LAYERS`` layers: a program's trace, save and load
@@ -159,7 +184,7 @@ Phases, each printed on its own line with its seconds:
               64 lines out, K3 and K5 launched.  Export seconds and sizes,
               the loaded loop's wall time beside eager's, and the host cost
               of an operator call beside the bare launch are printed.
-11. reference  a small model decoded on the card and on the CPU from the same
+12. reference  a small model decoded on the card and on the CPU from the same
               weights, by the chunk-staged decode ("fused" mode), by the
               KV-cached decode (int8 cache, K3, "pallas" mode), and by both
               over int4 weights with ``FUSED_MIN_TOKENS`` at 1 (K6/K7): >= 95 %
@@ -186,12 +211,12 @@ from contextlib import contextmanager
 import numpy as np
 
 TOTAL_BUDGET_S = 300
-# the depth of the int4 path and of the exported bundles, cut from 6 + 6 so
-# that the command stays within TOTAL_BUDGET_S (PERF.md)
+# the depth of the int4 path, the fault campaign and the exported bundles,
+# cut from 6 + 6 so that the command stays within TOTAL_BUDGET_S (PERF.md)
 SHALLOW_LAYERS = 1
 PHASE_LIMIT_S = {"device": 60, "build": 120, "kernels": 120, "main path": 180,
                  "serving path": 180, "int4 path": 120, "fault campaign": 60,
-                 "engine": 60, "train": 60, "export": 60, "reference": 60}
+                 "engine": 60, "parallel": 60, "train": 60, "export": 60, "reference": 60}
 # H100 SXM peaks at the full 700 W power limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -217,11 +242,17 @@ K12_SHAPES = [((512, 72), 512, 512), ((1000,), 512, 512), ((48,), 64, 96),
 # K5's checks: the decode step's three shapes, the prefill's at each of the
 # serving engine's bucket widths (512 x 24, 48 and 72 rows: encoder q/k/v/o
 # and cross-K/V, FFN 1, FFN 2), M = 1 with a ragged K, lead dims, a ragged N
-# and ragged M, K and N
+# and ragged M, K and N; then phase "parallel"'s: its lockstep logit check
+# (8 and 32 rows a step, 8 x 72 and 32 x 72 encoded) and its engine's 32
+# slots (a step, and a prefill at each bucket), one device's three products
+# and a rank's column-parallel ones at model=2 (q/k/v and cross K/V 256
+# columns, FFN 1 1,024)
 K5_SHAPES = ([((512,), 512, 512), ((512,), 512, 2048), ((512,), 2048, 512)]
              + [((m,), k, n) for m in (12288, 24576, 36864)
                 for k, n in ((512, 512), (512, 2048), (2048, 512))]
-             + [((1,), 300, 96), ((4, 15), 128, 128), ((1000,), 512, 96), ((129,), 304, 200)])
+             + [((1,), 300, 96), ((4, 15), 128, 128), ((1000,), 512, 96), ((129,), 304, 200)]
+             + [((m,), k, n) for m in (8, 32, 8 * 72, 32 * 24, 32 * 48, 32 * 72)
+                for k, n in ((512, 512), (512, 2048), (2048, 512), (512, 256), (512, 1024))])
 # K3's checks ((B, T, D, H), and "ring" for the serving engine's wrapped age
 # masks): the decode step's, a few rows, T = 1, a long T, a ragged D, a wide
 # D, many heads; then the engine's general chunk at 512 slots
@@ -1409,6 +1440,15 @@ ENGINE_RUNS = (("E1 fast", "fused", {}, "fast", 0.90),
 ENGINE_EOS_BIAS = 1.4
 
 
+def eos_raised(params: dict, cfg) -> dict:
+    """A copy of ``params`` with the generator's EOS logit raised by
+    ``ENGINE_EOS_BIAS``; ``params`` stays as it is."""
+    gen = dict(params["generator"])
+    gen["b"] = gen["b"].clone()
+    gen["b"][cfg.eos_id] += ENGINE_EOS_BIAS
+    return {**params, "generator": gen}
+
+
 def engine_expected(n: int, chunk_kind: str, mode: str, prefills: list, steps: int) -> dict:
     """Kernel launches that follow from an engine run's dispatches: each
     prefill (``[k, Sb]`` rows) encodes k x Sb tokens (6 quantized linears
@@ -1461,11 +1501,7 @@ def run_engine_path(device, base: dict, card: str = "", slots: int = 512, seq: i
     model = base["model"]
     cfg = model.cfg
     n = cfg.num_layers
-    # a copy of the parameters with the EOS logit raised; base stays as it is
-    gen = dict(base["params"]["generator"])
-    gen["b"] = gen["b"].clone()
-    gen["b"][cfg.eos_id] += ENGINE_EOS_BIAS
-    sp = {**base["params"], "generator": gen}
+    sp = eos_raised(base["params"], cfg)
     counters = kernel_counters()
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     results = {}
@@ -1570,6 +1606,278 @@ def run_engine_path(device, base: dict, card: str = "", slots: int = 512, seq: i
                   f"{100 * prof['busy_ms'] / (dt * 1e3):.1f} % of the unprofiled run's "
                   f"{dt:.6f} s on {card}", flush=True)
     return results
+
+
+# "parallel": the JAX engine's BASELINE config 5 (weights and the KV cache
+# tensor-sharded over a model axis, continuous batching) at the IWSLT14-base
+# widths, W8A8 "pallas", int8 cache; two ranks share the one card through
+# gloo (nccl refuses two ranks on one card), one rank runs over nccl.  The
+# depth is cut to 2 + 2 layers: at 6 + 6 the phase took 40.9 s on a fast
+# host and ran past its 60 s on a slow one (PERF.md)
+TP_ENGINE = dict(layers=2, slots=32, requests=64, seq=72, chunk=12, buckets=(24, 48, 72))
+TP_SEED = 60
+TP_LOGIT_STEPS = 3
+# the lockstep logit check's batches: a decode of 8 rows, printed (its f32
+# p.v product may take another cuBLAS kernel on the card than one device's,
+# PERF.md), and the engine's 32 slots, gated bit-equal
+TP_LOGIT_ROWS = (8, 32)
+TP_GATED_ROWS = 32
+
+
+def tp_expected(n: int, prefills: int, steps: int) -> dict:
+    """K5 launches of one rank of a tensor-parallel engine in mode "pallas":
+    the column-parallel linears only, per prefill the encoder's q/k/v and
+    w_1 (4 a layer) and the cross K/V (2 a decoder layer), per decode step
+    the decoder's self q/k/v, cross q and w_1 (5 a layer).  The
+    row-parallel ones (out-projections, w_2) take the int8 product and the
+    int32 sum over the model group; ``fused_attn`` is dropped, so no K3;
+    no other kernel runs."""
+    want = dict.fromkeys(MATMUL_COUNTERS, 0)
+    want["attn"] = 0
+    want["w8a8"] = 6 * n * prefills + 5 * n * steps
+    return want
+
+
+def tp_logits(base: dict, mesh, steps: int = TP_LOGIT_STEPS) -> dict:
+    """A few lockstep decode steps of ``TP_LOGIT_ROWS`` sources through the
+    tensor-parallel view and through one device on the same card (mode
+    "pallas", int8 cache): the largest difference of each step's raw logits
+    from one device's (0.0 where bit-equal), and this rank's logits for the
+    caller to hold against the other ranks'."""
+    import torch
+
+    import onnx_transformer_tpu_torch as P
+
+    model, sp = base["model"], base["params"]
+    tp = P.Transformer(model.cfg, mesh)
+    l1 = P.make_w8a8_linear_impl(base["payloads"], mode="pallas")
+    lt = P.shard_linear_impl(l1, mesh)
+    spt = P.shard_params(sp, mesh)
+    diff, mine = {}, []
+    for rows in TP_LOGIT_ROWS:
+        src, sm = base["src"][:rows], base["src_mask"][:rows]
+        c1 = model.init_cache(sp, model.encode(sp, src, sm, lin=l1), steps + 1, lin=l1,
+                              cache_dtype="int8")
+        ct = tp.init_cache(spt, tp.encode(spt, src, sm, lin=lt), steps + 1, lin=lt,
+                           cache_dtype="int8")
+        tok = torch.zeros((rows, 1), dtype=torch.int32, device=src.device)
+        diff[rows] = []
+        for i in range(steps):
+            g1, c1 = model.decode_step(sp, c1, tok, i, sm, lin=l1, log_probs=False)
+            gt, ct = tp.decode_step(spt, ct, tok, i, sm, lin=lt, log_probs=False)
+            diff[rows].append((g1 - gt).abs().max().item())
+            mine.append(gt.cpu())
+            tok = torch.argmax(g1, dim=-1).to(torch.int32)[:, None]
+    return {"diff": diff, "logits": mine}
+
+
+def tp_engine_run(base: dict, mesh, sizes: dict, label: str, card: str = "") -> dict:
+    """The engine of phase "parallel" over ``mesh`` (None: one device, with
+    ``fused_attn`` off, the reference), its ``sizes[requests]`` seeded
+    sources submitted, the kernel and collective counts set to 0 just
+    before ``run()`` and read just after.  Returns the tokens per request in
+    submission order, the launches, the prefill and chunk dispatches, the
+    seconds, the collectives, the cache bytes, the peak device memory and
+    the warnings."""
+    import warnings
+
+    import torch
+
+    import onnx_transformer_tpu_torch as P
+    from onnx_transformer_tpu_torch.parallel import collectives as PC
+
+    model = base["model"]
+    cfg = model.cfg
+    dev = base["src"].device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sp = eos_raised(base["params"], cfg)
+    lin = P.make_w8a8_linear_impl(base["payloads"], mode="pallas")
+    slots, seq = sizes["slots"], sizes["seq"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        eng = P.TranslationEngine(
+            model, sp, lin=lin, num_slots=slots, src_len=seq, max_len=seq,
+            chunk_steps=sizes["chunk"], kv_cache_dtype="int8", buckets=sizes["buckets"],
+            fused_attn=mesh is not None, mesh=mesh, prefill_chunk=slots,
+            stage_capacity=sizes["requests"] + slots, comp_capacity=16 * slots)
+    dispatch = {"prefill": [], "chunk": 0}
+    real_prefill, real_chunk = eng._prefill, eng._chunk
+
+    def prefill(st, src_rows, *a):
+        dispatch["prefill"].append(tuple(src_rows.shape))
+        return real_prefill(st, src_rows, *a)
+
+    def chunk_call(*a):
+        dispatch["chunk"] += 1
+        return real_chunk(*a)
+
+    eng._prefill, eng._chunk = prefill, chunk_call
+    src = engine_sources(sizes["requests"], seq, sizes["buckets"], cfg.src_vocab_size,
+                         seed=TP_SEED)
+    ids = [eng.submit(row) for row in src]
+    counters = kernel_counters()
+    sync()
+    for c in counters.values():
+        c.launches = 0
+    for c in PC.COLLECTIVES:
+        c.calls, c.seconds = 0, 0.0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    done = eng.run()
+    sync()
+    dt = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    got = {r.req_id: r for r in done}
+    outs = [got[i].out_tokens if i in got else None for i in ids]
+    steps = dispatch["chunk"] * sizes["chunk"]
+    st = eng._state
+    kv = sum(t.numel() * t.element_size()
+             for part in (st["cache"], st["stage"]) for lc in part["layers"]
+             for key, t in lc.items() if not key.endswith("_scale"))
+    scales = sum(t.numel() * t.element_size()
+                 for part in (st["cache"], st["stage"]) for lc in part["layers"]
+                 for key, t in lc.items() if key.endswith("_scale"))
+    coll = {c.__name__: (c.calls, c.seconds) for c in PC.COLLECTIVES}
+    res = {"outs": outs, "n_done": len(done), "distinct": len(got), "launches": launches,
+           "prefills": len(dispatch["prefill"]), "steps": steps, "seconds": dt,
+           "useful_per_s": sum(len(t) + 1 for t in outs if t is not None) / dt,
+           "collectives": coll, "kv_bytes": kv, "scale_bytes": scales,
+           "max_memory": (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0),
+           "warnings": [str(w.message) for w in caught], "chunk": real_chunk.__name__}
+    calls = sum(n for n, _ in coll.values())
+    host = sum(t for _, t in coll.values())
+    print(f"parallel {label}: {len(done)} requests in {dt:.6f} s, "
+          f"{res['useful_per_s']:.3f} useful tokens/s, {res['prefills']} prefills and "
+          f"{steps} steps ({real_chunk.__name__}); launches "
+          f"{ {k: v for k, v in launches.items() if v} }; collectives {calls} "
+          f"({calls / max(steps, 1):.1f} a step), {host:.6f} s of host time = "
+          f"{100 * host / dt:.1f} % of the run {coll}; KV bytes {kv}, scale bytes {scales}; "
+          f"max_memory_allocated {res['max_memory']} on {card}", flush=True)
+    return res
+
+
+def parallel_rank(sizes: dict) -> dict:
+    """One rank of phase "parallel", run by ``parallel.launch``: the
+    IWSLT14-base model from the seed at ``sizes["layers"]`` layers on this
+    rank's card (rank % cards; two ranks share one) or the CPU, the mesh
+    ``make_mesh(model=world)``, the logit check, then the engine run.  Every
+    rank's tokens and logits are gathered; rank 0 returns them."""
+    import torch
+    import torch.distributed as dist
+
+    import onnx_transformer_tpu_torch as P
+
+    rank = dist.get_rank()
+    device = torch.device(sizes["device"])
+    if device.type == "cuda":
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+    mesh = P.make_mesh(model=dist.get_world_size(), device=device)
+    base = build_iwslt(device, sizes["layers"], batch=max(TP_LOGIT_ROWS), src_len=sizes["seq"])
+    logits = tp_logits(base, mesh)
+    res = tp_engine_run(base, mesh, sizes, f"rank {rank} of {mesh.model} ({sizes['label']})",
+                        card_line() if device.type == "cuda" else "cpu")
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, {"outs": res["outs"], "launches": res["launches"],
+                                      "logits": logits["logits"],
+                                      "max_memory": res["max_memory"]})
+    res["ranks"] = everyone
+    res["logit_diff"] = logits["diff"]
+    return res
+
+
+def check_parallel(runs: dict, ref: dict, n: int, seq: int, counted: set) -> None:
+    """The gates of phase "parallel" over the runs ({label: result}, the
+    two-rank one under "gloo x2") against the one-device reference: every
+    request back once with at most ``seq - 1`` tokens; every rank's tokens
+    and logits the same; the tokens equal the reference's request for
+    request; the logits bit-equal to one device's at ``TP_GATED_ROWS`` rows
+    at every step; the launches ``tp_expected`` gives for the runs in
+    ``counted``; ``fused_attn`` dropped with a warning; the KV bytes 1 /
+    model of the reference's.  At fewer rows the difference is printed, not
+    gated: the decode attention's f32 p.v product is a batched GEMM of B x
+    heads / model matrices, whose kernel cuBLAS chooses by the batch count
+    (PERF.md)."""
+    want = ref["outs"]
+    for label, r in {"reference": ref, **runs}.items():
+        if (r["n_done"] != len(want) or r["distinct"] != len(want) or None in r["outs"]
+                or any(len(t) > seq - 1 for t in r["outs"])):
+            raise AssertionError(f"parallel {label}: {r['n_done']} requests back of "
+                                 f"{len(want)}, {r['distinct']} distinct, or one too long")
+    for label, r in runs.items():
+        ranks = r.get("ranks") or [r]
+        for k, other in enumerate(ranks):
+            if other["outs"] != r["outs"]:
+                raise AssertionError(f"parallel {label}: rank {k}'s tokens differ from rank 0's")
+            if "logits" in other and any(not bool((a == b).all())
+                                         for a, b in zip(other["logits"],
+                                                         ranks[0]["logits"])):
+                raise AssertionError(f"parallel {label}: rank {k}'s logits differ from "
+                                     "rank 0's")
+        diff = r["logit_diff"][TP_GATED_ROWS]
+        if any(d != 0.0 for d in diff):
+            raise AssertionError(f"parallel {label}: the logits differ from one device's at "
+                                 f"{TP_GATED_ROWS} rows, by step {diff}")
+        same = [a == b for a, b in zip(r["outs"], want)]
+        if not all(same):
+            raise AssertionError(f"parallel {label}: {len(same) - sum(same)} of {len(same)} "
+                                 "requests differ from the one-device engine's")
+        if label in counted:
+            expect = tp_expected(n, r["prefills"], r["steps"])
+            for k, other in enumerate(ranks):
+                if other["launches"] != expect:
+                    raise AssertionError(f"parallel {label}: rank {k} launched "
+                                         f"{other['launches']}, expected {expect}")
+        if not any("fused_attn" in w for w in r["warnings"]):
+            raise AssertionError(f"parallel {label}: no warning that fused_attn was dropped")
+        model = r["model"]
+        if r["kv_bytes"] * model != ref["kv_bytes"]:
+            raise AssertionError(f"parallel {label}: {r['kv_bytes']} KV bytes a rank at "
+                                 f"model={model}, the reference {ref['kv_bytes']}")
+
+
+def run_parallel_path(device, card: str = "", sizes: dict = TP_ENGINE,
+                      one_backend: str = "nccl", timeout_s: float = 50.0) -> dict:
+    """Phase "parallel": the model from the seed at ``sizes["layers"]``
+    layers, the one-device reference engine (``fused_attn`` off) and a world
+    of one rank over ``one_backend`` with ``make_mesh(model=1)`` in this
+    process, then two ranks on the same card (``parallel.launch``, gloo,
+    ``make_mesh(data=1, model=2)``), each building the model from the seed;
+    the gates of ``check_parallel``."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    import onnx_transformer_tpu_torch as P
+
+    n = sizes["layers"]
+    base = build_iwslt(device, n, batch=max(TP_LOGIT_ROWS), src_len=sizes["seq"])
+    ref = tp_engine_run(base, None, sizes, "one device (reference, fused_attn off)", card)
+    with tempfile.TemporaryDirectory(prefix="parallel-") as tmp:
+        dist.init_process_group(one_backend, init_method="file://" + os.path.join(tmp, "rv"),
+                                world_size=1, rank=0)
+        try:
+            mesh = P.make_mesh(model=1, device=device)
+            one = tp_engine_run(base, mesh, sizes, f"one rank over {one_backend}", card)
+            one["logit_diff"] = tp_logits(base, mesh)["diff"]
+        finally:
+            dist.destroy_process_group()
+    one["model"] = 1
+    two = P.launch(parallel_rank, 2, {**sizes, "device": device.type,
+                                      "label": "two ranks sharing one card through gloo"},
+                   backend="gloo", timeout_s=timeout_s)
+    two["model"] = 2
+    runs = {f"{one_backend} x1": one, "gloo x2": two}
+    counted = set(runs) if device.type == "cuda" else {f"{one_backend} x1"}
+    check_parallel(runs, ref, n, sizes["seq"], counted)
+    print(f"parallel: two ranks sharing one {card} through gloo (not a multi-card number): "
+          f"{two['useful_per_s']:.3f} useful tokens/s against one device's "
+          f"{ref['useful_per_s']:.3f}; max_memory_allocated per rank "
+          f"{[r['max_memory'] for r in two['ranks']]}, one device {ref['max_memory']}; "
+          f"KV bytes a rank {two['kv_bytes']} of {ref['kv_bytes']}; the logits' largest "
+          f"difference from one device's by rows and step: two ranks {two['logit_diff']}, "
+          f"one rank {one['logit_diff']}; every gate held", flush=True)
+    return {"reference": ref, "one": one, "two": two}
 
 
 # the train phase: the shipped recipe (scripts/train_iwslt14.py --dtype bf16
@@ -2260,10 +2568,13 @@ def main() -> int:
         int4_res = run_int4_path(device, shallow, max_len=72, chunk=8, card=card)
 
     with phase("fault campaign"):
-        run_fault_campaign(device, base, card=card)
+        run_fault_campaign(device, shallow, card=card)
 
     with phase("engine"):
         run_engine_path(device, base, card=card)
+
+    with phase("parallel"):
+        run_parallel_path(device, card=card)
 
     with phase("train"):
         run_train_path(device, card=card)

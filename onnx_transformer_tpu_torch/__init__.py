@@ -19,6 +19,15 @@ package.  It covers four serving paths of the IWSLT14 model:
   staged prefill runs K1/K2 (or K6/K7, or K5), its chunks the chunk-staged
   step or ``decode_step`` (K3, K5), and slot-group beam search.
 
+Tensor parallelism for serving (``parallel``): one process per rank
+(``launch``), a (data, model) mesh over ``torch.distributed``
+(``make_mesh``), Megatron shardings of the parameters and the W8A8 payloads
+(``shard_params``, ``shard_payloads``) and the collectives GSPMD inserts in
+the JAX package written out; the model's tensor-parallel view
+(``Transformer(cfg, mesh=mesh)``), the W8A8 linears, the KV-cached decodes
+and the engine (``mesh=``, and the serve command line's ``--tp``) run over
+it, K5 in the column-parallel linears.
+
 Every model method and linear impl takes the reference's ``taps``/``inject``
 seam (``ops.layers.tap``), through which ``quant.calibrate`` records
 activation scales and ``inject.campaign`` runs fault-injection campaigns
@@ -107,6 +116,16 @@ from onnx_transformer_tpu_torch.ops.kernels.w8a8_matmul import (  # noqa: E402
     quant_w8a8_matmul_qout,
     w8a8_matmul,
 )
+from onnx_transformer_tpu_torch.parallel import (  # noqa: E402
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    launch,
+    make_mesh,
+    param_pspecs,
+    shard_params,
+    shard_payloads,
+)
 from onnx_transformer_tpu_torch.params import (  # noqa: E402
     load_checkpoint_params,
     params_from_jax,
@@ -123,6 +142,7 @@ from onnx_transformer_tpu_torch.quant.smoothquant import (  # noqa: E402
 from onnx_transformer_tpu_torch.quant.w8a8 import (  # noqa: E402
     make_w8a8_linear_impl,
     quantize_transformer,
+    shard_linear_impl,
 )
 from onnx_transformer_tpu_torch.serving.decode import (  # noqa: E402
     beam_decode,
@@ -166,5 +186,7 @@ __all__ = [
     "load_iwslt14_vocab", "load_vocab", "save_vocab", "TrainState", "batch_to_arrays",
     "init_state", "make_optimizer", "make_train_step", "run_epoch", "export_model",
     "load_exported", "load_manifest", "export_qdq_onnx", "from_torch_state_dict",
-    "to_torch_state_dict", "load_reference_checkpoint",
+    "to_torch_state_dict", "load_reference_checkpoint", "DATA_AXIS", "MODEL_AXIS", "Mesh",
+    "launch", "make_mesh", "param_pspecs", "shard_params", "shard_payloads",
+    "shard_linear_impl",
 ]

@@ -383,7 +383,7 @@ def run_campaign(model: Transformer, params, payloads: dict, specs: Sequence[Fau
         raise ValueError(f"csv_format {csv_format!r} is not one of {CSV_FORMATS}")
     ids = _ids_from_keys(sorted(payloads), model.cfg.num_layers)
     keys = tuple(sorted(payloads))
-    src, src_mask = _on_device(src, src_mask)
+    src, src_mask = _on_device(model, src, src_mask)
 
     result = CampaignResult()
     t0 = time.perf_counter()

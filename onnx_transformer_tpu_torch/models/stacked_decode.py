@@ -55,7 +55,10 @@ def build_stacked(model: Transformer, params: dict, payloads: dict) -> dict:
     (every decoder linear; ``generator.proj`` optional, else the fp32
     generator).  Each layer also gets ``self_qkv``: q, k and v fused into one
     [D, 3D] int8 weight.  The int32 accumulation is exact, so the fused dot
-    equals the three separate ones bit for bit."""
+    equals the three separate ones bit for bit.  It runs on one device: a
+    tensor-parallel view of the model is refused."""
+    if model.mesh is not None:
+        raise ValueError("the chunk-staged decode runs on one device, not over a mesh")
     layers = []
     for i in range(model.cfg.num_layers):
         lp = params["decoder"]["layers"][i]

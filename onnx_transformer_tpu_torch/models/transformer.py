@@ -18,6 +18,20 @@ The KV cache (``init_cache``, ``decode_step``) is a dict of per-layer dicts
 of tensors, as in the JAX package, but a step writes its K/V rows into the
 cache's buffers in place (the JAX version copies functionally): the cache
 that ``decode_step`` returns holds the same buffers it was given.
+
+Tensor parallelism: ``Transformer(cfg, mesh=mesh)`` is this rank's view of
+the model over a (data, model) mesh (``parallel.make_mesh``), run on the
+rank's parameter slices (``parallel.shard_params``).  Each rank holds
+``num_heads / model`` heads and ``d_model / model`` columns of every q/k/v
+row, of the attention context and of the K/V caches, whose per-token
+scales stay whole (replicated).  Where GSPMD inserts collectives in the
+JAX package, the view calls them: the row-parallel out-projection and
+``w_2`` sum their partial products over the model group before the bias
+is added once (the plain linear here, a mesh-aware impl such as
+``make_w8a8_linear_impl(..., mesh=mesh)`` inside itself), and every
+per-token scale of a sharded row is the whole row's (a max over the
+group).  LayerNorm, the residual stream, the embeddings and the generator
+stay replicated, so every rank computes the same logits.
 """
 
 from __future__ import annotations
@@ -30,6 +44,8 @@ import torch
 from onnx_transformer_tpu_torch.device import resolve_device
 from onnx_transformer_tpu_torch.ops import layers as L
 from onnx_transformer_tpu_torch.ops.kernels.decode_attention import decode_attention_int8
+from onnx_transformer_tpu_torch.parallel.collectives import model_sum
+from onnx_transformer_tpu_torch.parallel.sharding import check_divisible
 from onnx_transformer_tpu_torch.quant.core import quantize_act_per_token
 
 Params = Any
@@ -141,10 +157,29 @@ def _scale_update(buf: torch.Tensor, new: torch.Tensor, idx,
 
 class Transformer:
     """Functional encoder-decoder; methods are pure in (params, inputs),
-    except that the cached decode writes the KV cache in place."""
+    except that the cached decode writes the KV cache in place.  With a
+    ``mesh``, the tensor-parallel view of one rank (module docstring)."""
 
-    def __init__(self, config: TransformerConfig):
+    def __init__(self, config: TransformerConfig, mesh=None):
         self.cfg = config
+        self.mesh = mesh
+        m = 1 if mesh is None else mesh.model
+        check_divisible(config.num_heads, config.d_ff, m)
+        # this rank's heads, and its columns of a merged-head row
+        self.heads = config.num_heads // m
+        self.width = config.d_model // m
+
+    def _row_linear(self, lin: LinearImpl, name: str, x, p: Params, taps, inject):
+        """A row-parallel linear (out-projection, ``w_2``).  Under a mesh the
+        rank holds rows of ``w``: a mesh-aware impl sums over the model group
+        itself, the plain linear's partial product is summed here and the
+        bias added once after the sum."""
+        if self.mesh is None or getattr(lin, "mesh", None) is self.mesh:
+            return lin(name, x, p["w"], p["b"], taps, inject)
+        if lin is not default_linear:
+            raise ValueError("under a tensor-parallel mesh a linear impl must be made for it "
+                             "(make_w8a8_linear_impl(..., mesh=mesh))")
+        return model_sum(lin(name, x, p["w"], None, taps, inject), self.mesh) + p["b"]
 
     def init(self, seed: int = 0, device=None) -> Params:
         """Random parameters from ``seed``: Xavier-uniform linears and
@@ -210,7 +245,7 @@ class Transformer:
         kernel K3 (``decode_attention_int8``) when no taps or inject are
         given and not training; otherwise the tapped attention runs."""
         cfg = self.cfg
-        h = cfg.num_heads
+        h = self.heads
         quant = cfg.quantize_attn_probs
         seams = taps is not None or inject is not None
         q_full = lin(f"{name}.linears.0", q_in, p["q"]["w"], p["q"]["b"], taps, inject)
@@ -218,7 +253,7 @@ class Transformer:
         single_step = q.shape[2] == 1 and not train
 
         def out_proj(ctx):
-            return lin(f"{name}.linears.3", ctx, p["o"]["w"], p["o"]["b"], taps, inject)
+            return self._row_linear(lin, f"{name}.linears.3", ctx, p["o"], taps, inject)
 
         def int8_attention(kq, ks, vq, vs):
             """One query step over an int8 cache."""
@@ -230,7 +265,7 @@ class Transformer:
             if not seams and getattr(lin, "quantized_output_grid", False):
                 # q is on the per-token int8 grid: all-int8-operand attention
                 return out_proj(L.int8_cache_attention_qdot(q_full, kq, ks, vq, vs, mask,
-                                                            quant, h))
+                                                            quant, h, self.mesh))
             return out_proj(L.merge_heads(L.int8_cache_attention(
                 q, kq, ks, vq, vs, mask, quant, name=name, taps=taps, inject=inject)))
 
@@ -251,8 +286,8 @@ class Transformer:
             if self_cache is not None and "k_scale" in self_cache:
                 # int8 cache of merged-head rows quantized per token; under
                 # W8A8, k and v already sit on that grid, so this is lossless
-                kq, ks = quantize_act_per_token(kfull)
-                vq, vs = quantize_act_per_token(vfull)
+                kq, ks = quantize_act_per_token(kfull, mesh=self.mesh)
+                vq, vs = quantize_act_per_token(vfull, mesh=self.mesh)
                 for key, val in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
                     self_cache[key] = _scale_update(self_cache[key], val, cache_index,
                                                     time_major=cache_tm)
@@ -263,7 +298,7 @@ class Transformer:
                                          "impl whose q sits on the int8 grid")
                     return out_proj(L.int8_cache_attention_qdot_tm(
                         q_full, sc["k"], sc["k_scale"], sc["v"], sc["v_scale"], mask,
-                        quant, h))
+                        quant, h, self.mesh))
                 if single_step:
                     return int8_attention(sc["k"], sc["k_scale"], sc["v"], sc["v_scale"])
                 k, v = dequantized(sc["k"], sc["k_scale"], sc["v"], sc["v_scale"])
@@ -283,7 +318,7 @@ class Transformer:
         """w_2(dropout(relu(w_1(x))))."""
         hcur = torch.relu(lin(f"{name}.w_1", x, p["w1"]["w"], p["w1"]["b"], taps, inject))
         hcur = self._drop(hcur, rng, train)
-        return lin(f"{name}.w_2", hcur, p["w2"]["w"], p["w2"]["b"], taps, inject)
+        return self._row_linear(lin, f"{name}.w_2", hcur, p["w2"], taps, inject)
 
     def _sublayer(self, x, ln_p, fn, rng, train) -> torch.Tensor:
         """Pre-norm residual: x + dropout(fn(norm(x)))."""
@@ -333,7 +368,7 @@ class Transformer:
         W8A8 impl produces those straight from its kernel through
         ``lin.linear_q8``."""
         int8 = cache_dtype == "int8"
-        h = self.cfg.num_heads
+        h = self.heads
         q8 = (getattr(lin, "linear_q8", None)
               if int8 and taps is None and inject is None else None)
         layers = []
@@ -350,8 +385,8 @@ class Transformer:
             ckf = lin(f"{nm}.linears.1", memory, ap["k"]["w"], ap["k"]["b"], taps, inject)
             cvf = lin(f"{nm}.linears.2", memory, ap["v"]["w"], ap["v"]["b"], taps, inject)
             if int8:
-                ckq, cks = quantize_act_per_token(ckf)
-                cvq, cvs = quantize_act_per_token(cvf)
+                ckq, cks = quantize_act_per_token(ckf, mesh=self.mesh)
+                cvq, cvs = quantize_act_per_token(cvf, mesh=self.mesh)
                 layers.append({"cross_k": ckq, "cross_v": cvq,
                                "cross_k_scale": cks, "cross_v_scale": cvs})
             else:
@@ -425,10 +460,11 @@ class Transformer:
         """Empty self-attention K/V buffers plus the cross-attention
         projections of the encoder memory, per decoder layer.  ``int8``:
         merged-head int8 rows [B, Tmax, D] (or [Tmax, B, D] with
-        ``time_major``) and per-token scales; ``fp32``: [B, H, Tmax, dk]."""
+        ``time_major``) and per-token scales; ``fp32``: [B, H, Tmax, dk].  Under
+        a mesh, this rank's D / model columns and H / model heads."""
         cfg = self.cfg
         b, dev = memory.shape[0], memory.device
-        h, dk = cfg.num_heads, cfg.d_model // cfg.num_heads
+        h, dk, d = self.heads, cfg.d_model // cfg.num_heads, self.width
         layers = []
         for cross in self.cross_kv(params, memory, lin=lin, taps=taps, inject=inject,
                                    cache_dtype=cache_dtype):
@@ -436,8 +472,8 @@ class Transformer:
             if cache_dtype == "int8":
                 lead = (max_len, b) if time_major else (b, max_len)
                 entry.update(
-                    k=torch.zeros((*lead, cfg.d_model), dtype=torch.int8, device=dev),
-                    v=torch.zeros((*lead, cfg.d_model), dtype=torch.int8, device=dev),
+                    k=torch.zeros((*lead, d), dtype=torch.int8, device=dev),
+                    v=torch.zeros((*lead, d), dtype=torch.int8, device=dev),
                     k_scale=torch.zeros((*lead, 1), device=dev),
                     v_scale=torch.zeros((*lead, 1), device=dev))
             else:

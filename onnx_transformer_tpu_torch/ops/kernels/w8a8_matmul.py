@@ -205,13 +205,20 @@ def quant_w8a8_matmul_q8_ref(x2, wq, sw, b):
     return quantize(y, sy), sy
 
 
+def w8a8_epilogue(acc: torch.Tensor, sx1: torch.Tensor, sw: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """K5's epilogue on the int32 product acc [M, N]: float(acc) * (sx1 *
+    sw) + b (a tensor-parallel rank applies it to the product summed over
+    its group)."""
+    return acc.float() * (sx1[:, None] * sw[None, :]) + b[None, :]
+
+
 def w8a8_matmul_ref(xq2: torch.Tensor, sx1: torch.Tensor, wq: torch.Tensor,
                     sw: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version of K5 on xq2 int8 [M, K] with scales sx1 f32 [M]:
     f32 [M, N] = float(xq2 @ wq) * (sx1 * sw) + b, the ops of the "int8"
     chain of ``quant/w8a8.py`` one for one."""
-    acc = int_mm(xq2, wq)
-    return acc.float() * (sx1[:, None] * sw[None, :]) + b[None, :]
+    return w8a8_epilogue(int_mm(xq2, wq), sx1, sw, b)
 
 
 def quant_w4a8_matmul_qout_ref(x2, wp, sw, b) -> torch.Tensor:

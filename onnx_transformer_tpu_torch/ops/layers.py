@@ -34,7 +34,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from onnx_transformer_tpu_torch.quant.core import _const, outside_trace, ste_round, true_div
+from onnx_transformer_tpu_torch.quant.core import (_const, outside_trace, ste_round, token_absmax,
+                                                   true_div)
 
 TapDict = Optional[dict]
 InjectDict = Optional[dict]
@@ -206,17 +207,19 @@ def int8_cache_attention(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
 def int8_cache_attention_qdot(q_full: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                               vq: torch.Tensor, vs: torch.Tensor,
                               mask: Optional[torch.Tensor], quantize: bool,
-                              num_heads: int) -> torch.Tensor:
+                              num_heads: int, mesh=None) -> torch.Tensor:
     """All-int8-operand attention of the merged-head query q_full f32
     [B, 1, D] over the int8 cache kq/vq [B, T, D], ks/vs [B, T, 1]; mask
     [B, 1, 1, T].  The query sits on the per-token int8 grid (the W8A8 q
     projection fake-quantizes its output), so ``round(q / sq)`` with
     ``sq = max(max|q| / 127, 1e-9)`` (not ``SCALE_FLOOR``) recovers its int8
     form exactly, and the score dot is an exact integer sum scaled by
-    ``sq * ks / sqrt(dk)``.  Returns [B, 1, D]."""
+    ``sq * ks / sqrt(dk)``.  Returns [B, 1, D].  Under a tensor-parallel
+    ``mesh`` the rank's D columns hold its ``num_heads`` heads, and max|q|
+    is the whole row's."""
     from onnx_transformer_tpu_torch.models.stacked_decode import _qdot_attn
 
-    sq = true_div(q_full.abs().amax(-1, keepdim=True), 127.0).clamp_min(1e-9)   # [B,1,1]
+    sq = true_div(token_absmax(q_full, mesh), 127.0).clamp_min(1e-9)   # [B,1,1]
     qi = torch.round(q_full / sq).to(torch.int8)[:, 0, :]
     vis = mask[:, 0, 0, :] if mask is not None else None
     ctx = _qdot_attn(qi, sq[:, 0, 0], kq, ks[..., 0], vq, vs[..., 0], vis,
@@ -227,12 +230,12 @@ def int8_cache_attention_qdot(q_full: torch.Tensor, kq: torch.Tensor, ks: torch.
 def int8_cache_attention_qdot_tm(q_full: torch.Tensor, kq: torch.Tensor,
                                  ks: torch.Tensor, vq: torch.Tensor, vs: torch.Tensor,
                                  mask: Optional[torch.Tensor], quantize: bool,
-                                 num_heads: int) -> torch.Tensor:
+                                 num_heads: int, mesh=None) -> torch.Tensor:
     """:func:`int8_cache_attention_qdot` over a time-major cache: kq/vq
     [T, B, D], ks/vs [T, B, 1]."""
     return int8_cache_attention_qdot(q_full, kq.transpose(0, 1), ks.transpose(0, 1),
                                      vq.transpose(0, 1), vs.transpose(0, 1), mask,
-                                     quantize, num_heads)
+                                     quantize, num_heads, mesh)
 
 
 def subsequent_mask(size: int, device=None) -> torch.Tensor:

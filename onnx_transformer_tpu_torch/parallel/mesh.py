@@ -1,0 +1,115 @@
+"""The (data, model) device mesh on ``torch.distributed`` (port of
+``onnx_transformer_tpu/parallel/mesh.py``).
+
+The JAX package runs one controller over every device and lets GSPMD insert
+the collectives.  Here each rank is a process of one process group
+(``parallel/launch.py`` starts the ranks of one host; ``initialize_distributed``
+joins the ranks of several), ``make_mesh`` lays the world out as data x
+model with ``init_device_mesh``, and every collective is an explicit call on
+one of the rank's two groups (``parallel/collectives.py``): the ``model``
+group of the ranks that share a batch row and hold the shards of one weight,
+the ``data`` group of the ranks that hold the same shard of different rows.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from onnx_transformer_tpu_torch.device import resolve_device
+from onnx_transformer_tpu_torch.parallel.collectives import data_gather
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
+
+def default_backend(device) -> str:
+    """nccl for ranks on cards, gloo on the CPU."""
+    return "nccl" if torch.device(device).type == "cuda" else "gloo"
+
+
+def initialize_distributed(coordinator_address: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None,
+                           backend: Optional[str] = None) -> None:
+    """Join this process to a world of ``num_processes`` ranks, rendezvous at
+    ``coordinator_address`` ("host:port", or any ``init_method`` URL), as
+    rank ``process_id`` (the reference's ``dist.init_process_group``).  The
+    backend is ``backend``, else nccl where a card is present and gloo
+    without one.  A no-op for one process."""
+    if num_processes is None or num_processes <= 1:
+        return
+    url = coordinator_address or ""
+    if "://" not in url:
+        url = f"tcp://{url}"
+    backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
+    dist.init_process_group(backend, init_method=url, world_size=num_processes,
+                            rank=process_id)
+
+
+@dataclass(frozen=True, eq=False)
+class Mesh:
+    """One rank's view of the data x model mesh: the ``DeviceMesh``, the
+    mesh's sizes, this rank's coordinates in it, the process groups of its
+    two axes and the device its tensors live on."""
+
+    device_mesh: object
+    data: int
+    model: int
+    data_rank: int
+    model_rank: int
+    data_group: object
+    model_group: object
+    device: torch.device
+
+
+def make_mesh(data: int = -1, model: int = 1, device=None) -> Mesh:
+    """This rank's (data, model) mesh over the whole world of the default
+    process group; ``data=-1`` takes all the ranks that ``model`` leaves.
+    ``device`` is where this rank's tensors live (the card by default; it
+    becomes the process's current card before the groups are made)."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs a process group: run under parallel.launch, "
+                           "or call initialize_distributed first")
+    n = dist.get_world_size()
+    if data == -1:
+        if n % model:
+            raise ValueError(f"{n} ranks are not divisible by model={model}")
+        data = n // model
+    if data * model != n:
+        raise ValueError(f"a mesh of {data} x {model} does not cover the {n} ranks")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device() if dev.index is None
+                           else dev.index)
+        torch.cuda.set_device(dev)
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dm = init_device_mesh(dev.type, (data, model), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    d_rank, m_rank = dm.get_coordinate()
+    return Mesh(dm, data, model, d_rank, m_rank, dm.get_group(DATA_AXIS),
+                dm.get_group(MODEL_AXIS), dev)
+
+
+def local_rows(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """This rank's rows of a batch ``x``: the batch split over ``data``,
+    which JAX's ``data_sharding`` (a ``P("data")`` placement) asks GSPMD
+    for."""
+    if mesh is None or mesh.data == 1:
+        return x
+    if x.shape[0] % mesh.data:
+        raise ValueError(f"a batch of {x.shape[0]} rows does not split over data={mesh.data}")
+    n = x.shape[0] // mesh.data
+    return x[mesh.data_rank * n:(mesh.data_rank + 1) * n]
+
+
+def gather_rows(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The rows of every data rank gathered back in order, the same on every
+    rank: what JAX's ``replicated`` (a ``P()`` placement of a result) asks
+    GSPMD for."""
+    if mesh is None or mesh.data == 1:
+        return x
+    return data_gather(x, mesh)

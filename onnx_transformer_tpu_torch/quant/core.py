@@ -101,18 +101,30 @@ def fake_quant_weight_per_channel(w: torch.Tensor, bits: int = 8) -> torch.Tenso
     return dequantize(q, s[None, :])
 
 
-def act_scale_per_token(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
-    """[..., d] -> [..., 1] scales."""
-    return absmax_scale(x, axis=-1, bits=bits, keepdims=True)
+def token_absmax(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """[..., d] -> [..., 1] per-token max |x|.  With a tensor-parallel
+    ``mesh``, ``x`` holds this rank's columns of each row, and the maximum is
+    the whole row's: a max over the model group."""
+    s = x.abs().amax(dim=-1, keepdim=True)
+    if mesh is not None:
+        from onnx_transformer_tpu_torch.parallel.collectives import model_max
+
+        s = model_max(s, mesh)
+    return s
 
 
-def quantize_act_per_token(x: torch.Tensor, bits: int = 8):
-    s = act_scale_per_token(x, bits)
+def act_scale_per_token(x: torch.Tensor, bits: int = 8, mesh=None) -> torch.Tensor:
+    """[..., d] -> [..., 1] scales (of the whole row, under a ``mesh``)."""
+    return true_div(_floor_scale(token_absmax(x, mesh)), qmax_for(bits))
+
+
+def quantize_act_per_token(x: torch.Tensor, bits: int = 8, mesh=None):
+    s = act_scale_per_token(x, bits, mesh)
     return quantize(x, s, bits), s
 
 
-def fake_quant_act_per_token(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
-    q, s = quantize_act_per_token(x, bits)
+def fake_quant_act_per_token(x: torch.Tensor, bits: int = 8, mesh=None) -> torch.Tensor:
+    q, s = quantize_act_per_token(x, bits, mesh)
     return dequantize(q, s)
 
 

@@ -20,6 +20,18 @@ domain), the output under ``.out`` and, for q/k/v, the fake-quantized output
 under ``.out_q``.  With taps or inject given, mode ``fused`` runs the int8
 chain instead of K1, which has no seams.
 
+Under a tensor-parallel mesh (``make_w8a8_linear_impl(..., mesh=mesh)`` over
+``parallel.shard_payloads``), a column-parallel linear (q/k/v, ``w_1``)
+computes this rank's output columns as one device computes them, K5 in
+mode ``pallas``; a row-parallel one (out-projection, ``w_2``) quantizes its
+columns of the input with the whole row's scale, sums its int32 partial
+product over the model group (exact), then applies K5's plain epilogue
+with the bias once, so both are bit-equal to one device; ``fake`` sums its
+f32 partial products.  The q/k/v outputs take the whole row's scale.  Mode
+``fused`` quantizes an output row whole inside K1/K2, of which a rank holds
+only part: under a mesh it warns and runs mode ``pallas``, whose
+column-parallel linears keep K5.
+
 ``bits`` sets the width of the weights and activations (qmax 2^(bits-1)-1,
 stored in int8).  The kernels of mode ``fused`` exist for 8 bits only, so
 with any other width that mode runs the int8 chain; its ``linear_q8`` then
@@ -29,6 +41,7 @@ whatever ``bits`` is).
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Literal, Optional, get_args
 
 import torch
@@ -36,6 +49,8 @@ import torch
 from onnx_transformer_tpu_torch.models.transformer import Transformer, default_linear
 from onnx_transformer_tpu_torch.ops import layers as L
 from onnx_transformer_tpu_torch.ops.kernels import w8a8_matmul as K
+from onnx_transformer_tpu_torch.parallel.collectives import model_sum
+from onnx_transformer_tpu_torch.parallel.sharding import linear_kind, shard_payloads
 from onnx_transformer_tpu_torch.quant import core as Q
 
 Mode = Literal["int8", "fake", "pallas", "fused"]
@@ -105,25 +120,45 @@ def _fused_ok(p: dict, name: str, x: torch.Tensor, bits: int, taps: L.TapDict = 
             and x.shape[-1] <= K.MAX_KN and p["wq"].shape[-1] <= K.MAX_KN)
 
 
-def make_w8a8_linear_impl(payloads: dict, mode: Mode = "int8", bits: int = 8) -> Callable:
+def make_w8a8_linear_impl(payloads: dict, mode: Mode = "int8", bits: int = 8,
+                          mesh=None) -> Callable:
     """LinearImpl for ``Transformer`` methods: the W8A8 stand-in for every
-    quantized linear, the plain fp linear for the rest."""
+    quantized linear, the plain fp linear for the rest.  With a ``mesh``,
+    for the tensor-parallel view ``Transformer(cfg, mesh=mesh)`` over this
+    rank's payload slices (``parallel.shard_payloads``); see the module
+    docstring."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
+    if mesh is not None and mode == "fused":
+        warnings.warn("W8A8 mode 'fused' quantizes each output row whole inside K1/K2, and "
+                      "under a tensor-parallel mesh a rank holds part of the row: running "
+                      "mode 'pallas' (K5 on the column-parallel linears) instead", stacklevel=2)
+        mode = "pallas"
 
     def lin(name: str, x, w, b, taps: L.TapDict = None, inject: L.InjectDict = None):
         p = payloads.get(name)
+        row = mesh is not None and linear_kind(name) == "row"
         if p is None:
+            if row:    # the plain row-parallel linear: partial products, then the bias
+                return model_sum(default_linear(name, x, w, None, taps, inject), mesh) + b
             return default_linear(name, x, w, b, taps, inject)
         if mode == "fused" and _fused_ok(p, name, x, bits, taps, inject):
             return K.quant_w8a8_matmul_qout(x, p["wq"], p["sw"], p["b"])
         x = L.tap(name, x, taps, inject)
-        sx = Q.act_scale_per_token(x, bits)
+        # a row-parallel input holds this rank's columns of each row
+        sx = Q.act_scale_per_token(x, bits, mesh if row else None)
         xq = L.tap(f"{name}.x_q", Q.quantize(x, sx, bits), taps, inject)
         wq = L.tap(f"{name}.w_q", p["wq"], taps, inject)
         if mode == "fake":
             y = torch.matmul(Q.dequantize(xq, sx), Q.dequantize(wq, p["sw"][None, :]))
+            if row:
+                y = model_sum(y, mesh)
             y = y + p["b"]
+        elif row:
+            # int8 and pallas: the exact int32 sum, then K5's plain epilogue
+            acc = model_sum(K.int_mm(xq.reshape(-1, xq.shape[-1]), wq), mesh)
+            y = K.w8a8_epilogue(acc, sx.reshape(-1), p["sw"], p["b"]).reshape(*x.shape[:-1],
+                                                                              -1)
         elif mode == "pallas":
             y = K.w8a8_matmul(xq, sx[..., 0], wq, p["sw"], p["b"])
         else:   # "int8": K5's plain version on every device
@@ -131,7 +166,7 @@ def make_w8a8_linear_impl(payloads: dict, mode: Mode = "int8", bits: int = 8) ->
                                   p["sw"], p["b"]).reshape(*x.shape[:-1], -1)
         y = L.tap(f"{name}.out", y, taps, inject)
         if is_quantized_output(name):
-            y = L.tap(f"{name}.out_q", Q.fake_quant_act_per_token(y, bits), taps, inject)
+            y = L.tap(f"{name}.out_q", Q.fake_quant_act_per_token(y, bits, mesh), taps, inject)
         return y
 
     if mode == "fused":
@@ -146,10 +181,24 @@ def make_w8a8_linear_impl(payloads: dict, mode: Mode = "int8", bits: int = 8) ->
         lin.linear_q8 = linear_q8
     lin.payloads = payloads
     lin.mode = mode
+    lin.bits = bits
+    lin.mesh = mesh
     # q/k/v outputs sit exactly on the per-token int8 grid, so a decode
     # attention may recover their int8 form losslessly
     lin.quantized_output_grid = True
     return lin
+
+
+def shard_linear_impl(lin: Callable, mesh) -> Callable:
+    """The tensor-parallel counterpart of a linear impl made for one device:
+    the plain linear stays as it is, a W8A8 impl is made again over this
+    rank's payload slices; any other impl is refused."""
+    if lin is default_linear:
+        return lin
+    if getattr(lin, "mode", None) not in MODES or getattr(lin, "mesh", None) is not None:
+        raise ValueError("a tensor-parallel mesh takes the plain linear or a one-device W8A8 "
+                         "impl (make_w8a8_linear_impl)")
+    return make_w8a8_linear_impl(shard_payloads(lin.payloads, mesh), lin.mode, lin.bits, mesh)
 
 
 def quantize_transformer(model: Transformer, params: dict,

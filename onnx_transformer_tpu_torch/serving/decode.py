@@ -6,9 +6,17 @@ the JAX package's ``lax.scan``/``while_loop`` programs (and its
 ``greedy_decode_jit``) have no counterpart.  Every entry point runs on the
 device of its ``src`` tensor; a ``src`` that is not a tensor goes to the
 card (``device.resolve_device``).
+
+Over a mesh (``model`` a tensor-parallel view, ``Transformer(cfg,
+mesh=mesh)``, with its rank's parameter slices and a linear impl made for
+the mesh), every rank is given the whole batch, decodes its ``data`` rank's
+rows, and returns every row, gathered over ``data``.  ``fused_attn`` is not
+taken over a mesh (a warning says so), as the JAX engine does not take it.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -16,12 +24,26 @@ import torch
 from onnx_transformer_tpu_torch.device import resolve_device
 from onnx_transformer_tpu_torch.models.transformer import Transformer, default_linear
 from onnx_transformer_tpu_torch.ops import layers as L
+from onnx_transformer_tpu_torch.parallel.mesh import gather_rows, local_rows
 
 
-def _on_device(src, src_mask):
+def _on_device(model, src, src_mask):
+    """``src`` and its mask on one device, cut to this data rank's rows."""
     if not isinstance(src, torch.Tensor):
         src = torch.as_tensor(np.asarray(src), device=resolve_device())
-    return src, torch.as_tensor(src_mask, device=src.device)
+    src_mask = torch.as_tensor(src_mask, device=src.device)
+    return local_rows(src, model.mesh), local_rows(src_mask, model.mesh)
+
+
+def mesh_fused_attn(model: Transformer, fused_attn: bool) -> bool:
+    """``fused_attn``, unless ``model`` is a tensor-parallel view: there the
+    int8-cache attention runs in PyTorch, as the JAX engine falls back
+    under a mesh (its Pallas call would gather the sharded cache)."""
+    if fused_attn and model.mesh is not None:
+        warnings.warn("fused_attn is not taken under a tensor-parallel mesh: the int8 cache "
+                      "attention runs in PyTorch on each rank's heads", stacklevel=3)
+        return False
+    return fused_attn
 
 
 def _time_major(lin, kv_cache_dtype: str, fused_attn: bool, kv_time_major: bool) -> bool:
@@ -35,8 +57,9 @@ def _time_major(lin, kv_cache_dtype: str, fused_attn: bool, kv_time_major: bool)
 def _greedy(model, params, src, src_mask, max_len, start_symbol, lin, stop_at_eos,
             kv_cache_dtype, fused_attn, kv_time_major, early_exit):
     cfg = model.cfg
-    src, src_mask = _on_device(src, src_mask)
+    src, src_mask = _on_device(model, src, src_mask)
     b, dev = src.shape[0], src.device
+    fused_attn = mesh_fused_attn(model, fused_attn)
     tm = _time_major(lin, kv_cache_dtype, fused_attn, kv_time_major)
     memory = model.encode(params, src, src_mask, lin=lin)
     cache = model.init_cache(params, memory, max_len, lin=lin, cache_dtype=kv_cache_dtype,
@@ -58,7 +81,7 @@ def _greedy(model, params, src, src_mask, max_len, start_symbol, lin, stop_at_eo
             finished = finished | (nxt == cfg.eos_id)
         ys[:, i + 1] = nxt
         last = nxt
-    return ys
+    return gather_rows(ys, model.mesh)
 
 
 @torch.no_grad()
@@ -93,7 +116,7 @@ def greedy_decode_nocache(model: Transformer, params, src, src_mask, max_len: in
                           start_symbol: int = 0, lin=default_linear) -> torch.Tensor:
     """Parity oracle: the whole decoder re-run for every token, no cache and
     no EOS stop."""
-    src, src_mask = _on_device(src, src_mask)
+    src, src_mask = _on_device(model, src, src_mask)
     memory = model.encode(params, src, src_mask, lin=lin)
     ys = torch.full((src.shape[0], 1), start_symbol, dtype=torch.int32, device=src.device)
     for _ in range(max_len - 1):
@@ -102,7 +125,7 @@ def greedy_decode_nocache(model: Transformer, params, src, src_mask, max_len: in
         logits = model.generate(params, h[:, -1], lin=lin, log_probs=False)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         ys = torch.cat([ys, nxt], dim=1)
-    return ys
+    return gather_rows(ys, model.mesh)
 
 
 def _top_k_stable(x: torch.Tensor, k: int):
@@ -122,8 +145,9 @@ def beam_decode(model: Transformer, params, src, src_mask, max_len: int,
     Beams ride the batch dimension; scores are normalised by the GNMT length
     penalty ``((5 + len) / 6) ** length_penalty``."""
     cfg = model.cfg
-    src, src_mask = _on_device(src, src_mask)
+    src, src_mask = _on_device(model, src, src_mask)
     b, dev = src.shape[0], src.device
+    fused_attn = mesh_fused_attn(model, fused_attn)
     k = beam_size
     memory = model.encode(params, src, src_mask, lin=lin)
     mem_k = memory.repeat_interleave(k, dim=0)
@@ -157,7 +181,7 @@ def beam_decode(model: Transformer, params, src, src_mask, max_len: int,
     lengths = (ys != cfg.pad_id).sum(dim=1).float()
     norm = (scores / ((5.0 + lengths) / 6.0) ** length_penalty).reshape(b, k)
     best = torch.argmax(norm, dim=1)
-    return ys.reshape(b, k, max_len)[torch.arange(b, device=dev), best]
+    return gather_rows(ys.reshape(b, k, max_len)[torch.arange(b, device=dev), best], model.mesh)
 
 
 def ids_to_tokens(ids, vocab, eos_id: int = 1, pad_id: int = 2) -> list[list[str]]:

@@ -39,8 +39,20 @@ Differences of mechanism, none of them visible in the tokens:
   with a CUDA event that says when it has landed, in place of the JAX
   engine's fetcher thread.
 
-Nothing inside a refill or a chunk reads a device value on the host.  The
-TP ``mesh`` needs ``parallel/``, which the port does not have yet.
+Nothing inside a refill or a chunk reads a device value on the host.
+
+Tensor parallelism (``mesh=``, a (data, model) mesh of ``parallel.make_mesh``;
+JAX's "BASELINE config 5"): every rank builds the engine from the full
+params and linear impl, which it shards itself (``parallel.shard_params``,
+``quant.w8a8.shard_linear_impl``), and runs the tensor-parallel view of the
+model.  A rank's KV cache and staging ring hold its ``d_model / model``
+columns (its heads in the fp32 layout); the scales, masks, tags, counters
+and output rings are whole on every rank (JAX's ``P()``).  Every rank runs
+the same host loop over the same submitted requests and returns the same
+``Request``s; to keep the loop's decisions the same on every rank, each
+report is waited for as soon as it is fetched.  A mesh takes the general
+chunk, drops ``fused_attn`` with a warning (as the JAX engine does) and
+refuses beam search.
 """
 
 from __future__ import annotations
@@ -58,7 +70,9 @@ import torch.nn.functional as F
 
 from onnx_transformer_tpu_torch.models import stacked_decode as SD
 from onnx_transformer_tpu_torch.models.transformer import Transformer, default_linear
-from onnx_transformer_tpu_torch.serving.decode import _top_k_stable
+from onnx_transformer_tpu_torch.parallel.sharding import shard_params
+from onnx_transformer_tpu_torch.quant.w8a8 import shard_linear_impl
+from onnx_transformer_tpu_torch.serving.decode import _top_k_stable, mesh_fused_attn
 
 
 @dataclass
@@ -130,11 +144,15 @@ class TranslationEngine:
         beam_size: int = 1,
         length_penalty: float = 0.6,
     ):
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "TranslationEngine(mesh=...) shards the weights and the KV cache over "
-                "a tensor-parallel mesh, which needs the parallel/ module; the port "
-                "does not have it yet")
+            if beam_size > 1:
+                raise ValueError("engine beam mode runs on one device: beam_size > 1 takes "
+                                 "no mesh")
+            model = Transformer(model.cfg, mesh)
+            fused_attn = mesh_fused_attn(model, fused_attn)
+            params = shard_params(params, mesh)
+            lin = shard_linear_impl(lin, mesh)
         self.model = model
         cfg = model.cfg
         # completion rows pack 2 output tokens per int32 (pack_ring)
@@ -221,7 +239,7 @@ class TranslationEngine:
         first = self._payloads.get("decoder.layers.0.self_attn.linears.0")
         if self.beam > 1:
             self._chunk = self._chunk_beam
-        elif (kv_cache_dtype == "int8" and not fused_attn and not self._tm
+        elif (kv_cache_dtype == "int8" and mesh is None and not fused_attn and not self._tm
                 and chunk_steps >= 1 and T % chunk_steps == 0
                 and first is not None and "wq" in first
                 and getattr(lin, "mode", "int8") in ("int8", "fused")):
@@ -547,10 +565,10 @@ class TranslationEngine:
     def _blank_state(self) -> dict:
         cfg = self.model.cfg
         B, T, S, R, dev = self.B, self.T, self.S, self.R, self.device
-        h = cfg.num_heads
-        dk = cfg.d_model // h
+        # this rank's heads and columns under a mesh
+        h, d = self.model.heads, self.model.width
+        dk = cfg.d_model // cfg.num_heads
         dt = cfg.dtype
-        d = cfg.d_model
 
         def zeros(shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -809,7 +827,9 @@ class TranslationEngine:
             # full, or when the drain tail stopped dispatching chunks
             _t = time.perf_counter() if dbg else 0.0
             while fetches:
-                block = len(fetches) >= pipeline_depth or tail_done
+                # under a mesh every rank must take the same decisions
+                block = (len(fetches) >= pipeline_depth or tail_done
+                         or self.mesh is not None)
                 if not block and not fetches[0].ready():
                     break
                 f = fetches.popleft()

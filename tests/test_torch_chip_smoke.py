@@ -23,8 +23,9 @@ from onnx_transformer_tpu_torch.quant import w8a8 as TW
 CPU = torch.device("cpu")
 
 
-@pytest.fixture
-def rehearsal(monkeypatch):
+def install_rehearsal(monkeypatch):
+    """Counting wrappers around the kernel wrappers; the CUDA-only timing
+    and profiling stubbed."""
     def counting(fn):
         def wrapper(*args, **kwargs):
             wrapper.launches += 1
@@ -41,6 +42,11 @@ def rehearsal(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(C, "cuda_ms", lambda fn, **k: (fn(), 0.0)[1])
     monkeypatch.setattr(C, "profile_decode", lambda *a, **k: None)
+
+
+@pytest.fixture
+def rehearsal(monkeypatch):
+    install_rehearsal(monkeypatch)
 
 
 def test_kernel_checks(rehearsal):
@@ -298,12 +304,22 @@ def test_k12_shapes_reach_every_kernel_instance():
 
 def test_k5_and_k3_checks_cover_the_engine():
     """K5 is checked at the engine prefills' rows (512 slots x each bucket)
-    for every product of the encoder and the cross-K/V, and K3 at the
+    for every product of the encoder and the cross-K/V, at every shape that
+    phase "parallel" gives it, one device's and a rank's, and K3 at the
     general chunk's wrapped age masks: per row a window of the last lpos + 1
     positions ending at the ring index, empty for a dead slot, wrapping past
     T - 1."""
     for m in (512 * 24, 512 * 48, 512 * 72):
         for k, n in ((512, 512), (512, 2048), (2048, 512)):
+            assert ((m,), k, n) in C.K5_SHAPES
+    # phase "parallel": one device's products and a rank's column-parallel
+    # ones at model=2, at the logit check's and the engine's rows
+    d, ff, tp = 512, 2048, 2
+    slots, seq = C.TP_ENGINE["slots"], C.TP_ENGINE["seq"]
+    rows = ({slots} | {slots * b for b in C.TP_ENGINE["buckets"]}
+            | set(C.TP_LOGIT_ROWS) | {r * seq for r in C.TP_LOGIT_ROWS})
+    for m in rows:
+        for k, n in ((d, d), (d, ff), (ff, d), (d, d // tp), (d, ff // tp)):
             assert ((m,), k, n) in C.K5_SHAPES
     assert (512, 72, 512, 8, "ring") in C.K3_CASES
     b, t = 64, 9

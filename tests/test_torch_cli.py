@@ -9,8 +9,9 @@ each CLI module in place of the IWSLT14-base configuration and vocabulary.
 - ``python -m onnx_transformer_tpu_torch.serving``: lines from a file give
   the port engine's translations in input order, for fp32 from a checkpoint
   and for "pallas" with the int8 cache and ``fused_attn`` from seeded params
-  (a missing checkpoint warns); ``--raw`` keeps the BPE tokens; ``--tp``
-  raises, naming the parallel/ module.
+  (a missing checkpoint warns); ``--raw`` keeps the BPE tokens; ``--tp 2``
+  on the CPU (two gloo ranks, one process each) prints the lines of
+  ``--tp 0``, and on cards fewer cards than ranks is refused.
 """
 
 import numpy as np
@@ -121,7 +122,22 @@ def test_serve_cli_translates_as_the_engine(small_cli, tmp_path, capsys, mode, k
     assert ("missing, random params" in captured.err) == (mode != "fp32")
 
 
-def test_serve_cli_refuses_tensor_parallel(small_cli):
+def test_serve_cli_tensor_parallel_prints_the_lines_of_one_device(small_cli, capsys):
+    _, _, ckpt, _, scales_path, src_path = small_cli
+    argv = ["--mode", "int8", "--kv-dtype", "int8", "--input", src_path, "--num-slots", "4",
+            "--src-len", "10", "--max-len", "8", "--platform", "cpu", "--scales",
+            scales_path, "--ckpt", ckpt]
+    assert serve_cli.main(argv) == 0
+    want = capsys.readouterr().out.splitlines()
+    assert serve_cli.main(argv + ["--tp", "2"]) == 0
+    captured = capsys.readouterr()
+    assert captured.out.splitlines() == want and len(want) == len(LINES)
+    assert f"# {len(LINES)} sentences" in captured.err and "tp=2" in captured.err
+
+
+def test_serve_cli_nccl_needs_a_card_per_rank(small_cli, capsys):
     *_, src_path = small_cli
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        serve_cli.main(["--tp", "2", "--input", src_path, "--platform", "cpu"])
+    with pytest.raises(SystemExit):
+        serve_cli.main(["--tp", str(torch.cuda.device_count() + 1), "--input", src_path,
+                        "--platform", "cuda"])
+    assert "needs a card per rank" in capsys.readouterr().err

@@ -1,6 +1,5 @@
 """Port of serving/engine.py against the JAX package, case for case with
-tests/test_engine.py (all but the TP mesh, which needs the unported
-parallel/): the same numpy sources and the same JAX weights go through the
+tests/test_engine.py (the TP mesh is in tests/test_torch_engine_tp.py): the same numpy sources and the same JAX weights go through the
 JAX package's lockstep ``greedy_decode``/``beam_decode``, which the JAX
 tests hold the JAX engine to, and through the port's engine, which must
 give identical token ids per request.  The fast-chunk, beam and bucketed
@@ -385,12 +384,6 @@ def test_engine_drops_lose_no_request(setup):
     assert bool(st["stage"]["layers"][0]["cross_k"][4].any()), "no padding entry was dropped"
     assert st["comp"].shape[0] == eng._C + 1 and bool((st["comp"][eng._C] != 0).any())
     assert eng.gated_slots > 0 and eng.starved_slots > 0
-
-
-def test_engine_mesh_raises(setup):
-    pm, pp = setup["torch"]
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        TE.TranslationEngine(pm, pp, mesh=object())
 
 
 def test_engine_runs_on_the_device_of_params(setup):
