@@ -35,7 +35,8 @@ Phases, each printed on its own line with its seconds:
               (quant_w4a8_matmul) bit for bit at ``QGEMM_SHAPES`` (the
               encoder FFN's two products, the decode step's, M=1 with a
               ragged K, lead dims, ragged N and K, and K past the resident
-              limit; K4 also the K-tiled contract at K=16384 and K=9728),
+              limit; K4 also the K-tiled contract at K=16384 and K=9728, K8
+              also phase "parallel"'s W4A8 shapes),
               which run all 16 of their kernel instances (4 configurations x
               vector and scalar loads x K4/K8), with the same SASS gate on
               ``quant_gemm_kernel``, and timed at the FFN's two shapes and
@@ -144,7 +145,32 @@ Phases, each printed on its own line with its seconds:
               Printed: useful tokens/s beside the reference's, the
               collectives a step and their host share,
               ``max_memory_allocated`` a rank, the logits' largest
-              difference from one device's at 8 rows.  Not a multi-card
+              difference from one device's at 8 rows.  Then each of the two
+              ranks: the same lockstep logits through the W4A8 impl over
+              packed-int4 payloads (K6/K7 step aside under a mesh with a
+              warning, for K8 on the column-parallel linears), bit-equal to
+              one device's at 32 rows, K8 launched ``tp_w4a8_expected`` a
+              rank and no other kernel; and training
+              (``tp_train``): the IWSLT14-base model at 6 + 6 layers and
+              full width from the seed, f32, dropout 0, the probability
+              rounding off, B=16 x 72 synthetic pairs, one step on
+              ``make_mesh(data=1, model=2)`` and one on ``make_mesh(data=2,
+              model=1)`` in the same world against one device's on the
+              same card: loss within rtol 1e-5, gradients within
+              ``TRAIN_GRAD_LIMIT`` of the largest with each FFN ReLU gate
+              snapped to one device's (a mesh's products have other shapes,
+              and an ulp near 0 flips a gate), at most
+              ``TP_GATE_FLIP_LIMIT`` of the gates flipped without the snap;
+              the timed ``make_train_step`` step's loss within rtol 1e-5 of
+              one device's step's, its Adam first moment within
+              ``TP_STEP_MU_LIMIT`` of one device's step's slices and within
+              ``TP_STEP_SAME_LIMIT`` of (1 - b1) times its own unsnapped
+              gradient; the replicated leaves bit-equal on every rank after
+              the step; one bf16 recipe step
+              (dropout 0.3, ``mesh_generator``) finite with the replicated
+              leaves equal again.  Printed: ms a step of each mesh and of
+              one device, the collectives of a step and their host
+              seconds, ``max_memory_allocated`` a rank.  Not a multi-card
               number.
 10. train     training at the same widths, weights from a seed, over
               synthetic BPE-like pairs of the vocabularies' own tokens at the
@@ -199,6 +225,7 @@ kernel build.
 from __future__ import annotations
 
 import faulthandler
+import functools
 import json
 import os
 import signal
@@ -266,14 +293,18 @@ K67_SHAPES = K12_SHAPES + [((37,), 130, 96)]
 # decode step's, M = 1 with a ragged K, lead dims, ragged N with enough rows
 # for BM 128 and for BM 64 (scalar loads), ragged N and K at BM 32, K % 4 ==
 # 2, and K past the resident limit (streamed x) with vector and scalar
-# loads; K4 also at the JAX K-tiled kernel's K = 16384 and K = 9728.  Each
-# kernel instance runs (plan_quant_gemm with the H100's 132 SMs)
+# loads; K4 also at the JAX K-tiled kernel's K = 16384 and K = 9728; K8
+# also at phase "parallel"'s W4A8 view (a rank's column-parallel linears at
+# model=2: q/k/v and cross K/V 256 columns, FFN 1 1,024; 8 and 32 rows a
+# step, 8 x 72 and 32 x 72 encoded).  Each kernel instance runs
+# (plan_quant_gemm with the H100's 132 SMs)
 QGEMM_COMMON = [((36864,), 512, 2048), ((36864,), 2048, 512), ((512,), 512, 512),
                 ((1,), 300, 96), ((4, 15), 128, 128), ((3000,), 300, 1500),
                 ((2200,), 300, 1000), ((129,), 304, 200), ((37,), 130, 96),
                 ((5,), 2050, 200)]
 QGEMM_SHAPES = {"qgemm": QGEMM_COMMON + [((24,), 16384, 96), ((16,), 9728, 64)],
-                "qgemm4": QGEMM_COMMON + [((24,), 4096, 96)]}
+                "qgemm4": QGEMM_COMMON + [((24,), 4096, 96)]
+                + [((m,), 512, n) for m in (8, 32, 8 * 72, 32 * 72) for n in (256, 1024)]}
 # K4/K8 timed at the FFN shape (the kernel row's), its second product and
 # the decode step's
 QGEMM_TIME_SHAPES = [((36864,), 512, 2048), ((36864,), 2048, 512), ((512,), 512, 512)]
@@ -648,17 +679,25 @@ def count_sass(sass: str, kernel: str, opcodes=("IMMA", "HGMMA", "IDP")) -> dict
     return counts
 
 
-def sass_counts(library: str, kernel: str) -> dict | None:
-    """:func:`count_sass` of the built library, or None where the toolkit
-    has no cuobjdump."""
+@functools.lru_cache(maxsize=None)
+def library_sass(library: str) -> str | None:
+    """The SASS of the built library (``cuobjdump -sass``, 14-16 s a call
+    on the card's host, so once a library), or None where the toolkit has
+    no cuobjdump."""
     from onnx_transformer_tpu_torch.ops.kernels import build
 
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         return None
-    sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True,
+    return subprocess.run([tool, "-sass", library], capture_output=True, text=True,
                           timeout=120, check=True).stdout
-    return count_sass(sass, kernel)
+
+
+def sass_counts(library: str, kernel: str) -> dict | None:
+    """:func:`count_sass` of the built library, or None where the toolkit
+    has no cuobjdump."""
+    sass = library_sass(library)
+    return None if sass is None else count_sass(sass, kernel)
 
 
 def k3_inputs(b: int, t: int, d: int, seed: int, device, masked_row=None, ring=False):
@@ -1638,19 +1677,20 @@ def tp_expected(n: int, prefills: int, steps: int) -> dict:
     return want
 
 
-def tp_logits(base: dict, mesh, steps: int = TP_LOGIT_STEPS) -> dict:
+def tp_logits(base: dict, mesh, steps: int = TP_LOGIT_STEPS, lin=None) -> dict:
     """A few lockstep decode steps of ``TP_LOGIT_ROWS`` sources through the
-    tensor-parallel view and through one device on the same card (mode
-    "pallas", int8 cache): the largest difference of each step's raw logits
-    from one device's (0.0 where bit-equal), and this rank's logits for the
-    caller to hold against the other ranks'."""
+    tensor-parallel view and through one device on the same card (``lin``,
+    a one-device impl, W8A8 mode "pallas" by default; int8 cache): the
+    largest difference of each step's raw logits from one device's (0.0
+    where bit-equal), and this rank's logits for the caller to hold against
+    the other ranks'."""
     import torch
 
     import onnx_transformer_tpu_torch as P
 
     model, sp = base["model"], base["params"]
     tp = P.Transformer(model.cfg, mesh)
-    l1 = P.make_w8a8_linear_impl(base["payloads"], mode="pallas")
+    l1 = lin or P.make_w8a8_linear_impl(base["payloads"], mode="pallas")
     lt = P.shard_linear_impl(l1, mesh)
     spt = P.shard_params(sp, mesh)
     diff, mine = {}, []
@@ -1757,12 +1797,277 @@ def tp_engine_run(base: dict, mesh, sizes: dict, label: str, card: str = "") -> 
     return res
 
 
+def tp_w4a8_expected(n: int, steps: int = TP_LOGIT_STEPS) -> dict:
+    """Launches of one rank's ``tp_w4a8_logits``: K8 on the tensor-parallel
+    view's column-parallel linears, for each batch of ``TP_LOGIT_ROWS`` the
+    encoder's q/k/v and w_1 (4 a layer), the cross K/V (2 a decoder layer)
+    and each step's self q/k/v, cross q and w_1 (5 a layer).  One device's
+    calls there are under ``FUSED_MIN_TOKENS``, so its K6/K7 do not run;
+    no other kernel runs."""
+    want = dict.fromkeys(MATMUL_COUNTERS, 0)
+    want["attn"] = 0
+    want["qgemm4"] = len(TP_LOGIT_ROWS) * (6 * n + 5 * n * steps)
+    return want
+
+
+def tp_w4a8_logits(base: dict, mesh) -> dict:
+    """``tp_logits`` through the W4A8 impl over packed-int4 payloads of the
+    same weights (under a mesh K6/K7 step aside, with a warning, for K8 on
+    the column-parallel linears), the kernel counts set to 0 just before
+    and read just after."""
+    import warnings
+
+    import torch
+
+    import onnx_transformer_tpu_torch as P
+
+    lin4 = P.make_w4a8_linear_impl(P.quantize_model_params_int4(base["model"], base["params"]))
+    sync = torch.cuda.synchronize if mesh.device.type == "cuda" else (lambda: None)
+    counters = kernel_counters()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for c in counters.values():
+            c.launches = 0
+        out = tp_logits(base, mesh, lin=lin4)
+        sync()
+    out["launches"] = {k: c.launches for k, c in counters.items()}
+    out["warnings"] = [str(w.message) for w in caught]
+    return out
+
+
+# phase "parallel"'s training: the IWSLT14-base model at full depth and
+# width, f32, dropout 0, the attention probabilities' 1/127 rounding off
+# (an ulp in p moves a whole 1/127 step, as in phase "train"), over
+# ``TP_TRAIN["rows"]`` x ``TP_TRAIN["seq"]`` synthetic pairs; one step on
+# each mesh of ``TP_TRAIN_MESHES`` (data, model) against one device's on
+# the same card; then one bf16 recipe step (dropout 0.3) on the first mesh
+TP_TRAIN = dict(layers=6, rows=16, seq=72)
+TP_TRAIN_MESHES = (("TP", 1, 2), ("DP", 2, 1))
+TP_TRAIN_SEED = 61
+
+
+def replicated_leaves(params, mesh):
+    """This rank's leaves that every rank of the world holds whole (all of
+    them at model = 1), flat."""
+    import torch
+
+    from onnx_transformer_tpu_torch.parallel.sharding import replicated_mask
+    from onnx_transformer_tpu_torch.params import tree_leaves
+
+    keep = tree_leaves(replicated_mask(params))
+    return torch.cat([t.reshape(-1) for t, k in zip(tree_leaves(params), keep)
+                      if k or mesh.model == 1])
+
+
+def equal_to_rank0(t) -> bool:
+    """Whether ``t`` is bit-equal to rank 0's ``t`` (a broadcast)."""
+    import torch
+    import torch.distributed as dist
+
+    ref = t.clone()
+    dist.broadcast(ref, src=0)
+    return bool(torch.equal(ref, t))
+
+
+# of the FFN's ReLU gates, the largest share that may flip between a mesh's
+# forward and one device's (an ulp of difference in a pre-activation near 0
+# flips a gate, and the gate moves a whole unit's gradient: 3 of 28,114,944
+# gates at 6 + 6 layers, B=16 x 72, PERF.md §6)
+TP_GATE_FLIP_LIMIT = 1e-5
+# the timed ``make_train_step`` step runs without the snap, so its Adam
+# first moment, (1 - b1) times its gradient, is held to one device's
+# step's within a share of the largest that leaves room for those flips
+# (the gradients as they come were 9.1e-5 to 2.3e-4 of the largest in
+# PERF.md §6's runs; a wrong normaliser, sign or sum moves it by percents)
+# and, as the step's own gradient, to ``(1 - b1)`` times the unsnapped
+# ``value_and_grad`` gradient of the same inputs within
+# ``TP_STEP_SAME_LIMIT`` of the largest (the same products in the same
+# order: float noise only)
+TP_STEP_MU_LIMIT = 1e-3
+TP_STEP_SAME_LIMIT = 1e-6
+
+
+def local_part(key: str, value, mesh):
+    """This rank's part of one device's tapped linear output ``key``
+    (``<name>.out``): its batch rows, and a column-parallel linear's output
+    columns."""
+    import onnx_transformer_tpu_torch as P
+    from onnx_transformer_tpu_torch.parallel.sharding import linear_kind
+
+    value = P.parallel.local_rows(value, mesh)
+    if linear_kind(key[:-len(".out")]) == "column":
+        return value.chunk(mesh.model, -1)[mesh.model_rank]
+    return value
+
+
+def tp_train(device, train: dict, card: str = "") -> dict:
+    """Phase "parallel"'s training on one rank of the world: one device's
+    loss, gradients and step on this rank's card as the reference, then for
+    each mesh of ``TP_TRAIN_MESHES`` the tensor- or data-parallel loss and
+    gradients (``value_and_grad`` over this rank's parameter slices and
+    rows) against the reference's slices, one timed ``make_train_step``
+    step with its collectives and peak memory, its loss against one
+    device's step's, its Adam first moment against one device's step's
+    slices and against ``(1 - b1)`` times the unsnapped gradient, and
+    whether the leaves that every rank holds whole equal rank 0's after
+    it; then one bf16 step of
+    the shipped recipe (dropout 0.3, ``mesh_generator``) on the first mesh:
+    finite, and those leaves equal rank 0's again.
+
+    The mesh's products have other shapes than one device's, and an ulp of
+    difference in an FFN pre-activation near 0 flips its ReLU gate, which
+    moves a whole unit's gradient.  So the gradients are held to the
+    reference's with each ``w_1`` output snapped to the reference's
+    (through ``inject``; the gradient passes through the snap), the gates
+    that flip without the snap are counted, and the gradients as they come
+    are printed."""
+    import torch
+
+    import onnx_transformer_tpu_torch as P
+    from onnx_transformer_tpu_torch.parallel import collectives as PC
+    from onnx_transformer_tpu_torch.params import tree_leaves, tree_map, tree_unflatten
+    from onnx_transformer_tpu_torch.train import trainer as T
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    vs, vt = P.load_iwslt14_vocab()
+    cfg = P.TransformerConfig(len(vs), len(vt), num_layers=train["layers"], dropout=0.0,
+                              quantize_attn_probs=False)
+    model = P.Transformer(cfg)
+    tx = P.make_optimizer(cfg.d_model)
+    params = model.init(seed=0, device=device)
+
+    def fresh():
+        return {"params": params, "opt_state": tx.init(params),
+                "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+    pairs = train_pairs(train["rows"], vs, vt, seed=TP_TRAIN_SEED)
+    arrs = P.batch_to_arrays(P.Batch.make(*P.collate(pairs, vs, vt, train["seq"])),
+                             device=device)
+
+    def timed(fn):
+        """fn() with the collectives' counts and the peak memory from 0."""
+        for c in PC.COLLECTIVES:
+            c.calls, c.seconds = 0, 0.0
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        coll = {c.__name__: (c.calls, c.seconds) for c in PC.COLLECTIVES if c.calls}
+        mem = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+        return out, (time.perf_counter() - t0) * 1e3, coll, mem
+
+    ref_taps = {}
+    (_, ref_loss, ntok), ref_g = T.value_and_grad(model, params, arrs, taps=ref_taps)
+    pre_relu = [k for k in ref_taps if k.endswith("feed_forward.w_1.out")]
+    ref_taps = {k: ref_taps[k].detach() for k in pre_relu}
+    one_step, one_state = P.make_train_step(model, tx), tree_map(torch.clone, fresh())
+    (one_state, one_m), one_ms, _, one_mem = timed(lambda: one_step(one_state, arrs, None))
+    one_mu = one_state["opt_state"][0].mu
+    del one_state
+    gmax = max(g.abs().max().item() for g in ref_g)
+    mu_max = max(m.abs().max().item() for m in tree_leaves(one_mu))
+    out = {"one": {"loss": float(ref_loss), "ntok": int(ntok), "ms": one_ms,
+                   "step_loss": float(one_m["loss"]), "max_memory": one_mem, "gmax": gmax}}
+    meshes = {}
+    for label, data, width in TP_TRAIN_MESHES:
+        mesh = meshes[label] = P.make_mesh(data=data, model=width, device=device)
+        tm = P.Transformer(cfg, mesh)
+        state, rows = P.shard_state(fresh(), mesh), P.shard_batch(arrs, mesh)
+        want = tree_leaves(P.shard_params(tree_unflatten(params, ref_g), mesh))
+        taps = {}
+        (_, loss, ntok), raw_g = T.value_and_grad(tm, state["params"], rows, taps=taps)
+        raw = max((a - b).abs().max().item() for a, b in zip(raw_g, want))
+        mine = {k: local_part(k, ref_taps[k], mesh) for k in pre_relu}
+        flips = sum(int(((taps[k] > 0) != (mine[k] > 0)).sum()) for k in pre_relu)
+        gates = sum(mine[k].numel() for k in pre_relu)
+        snap = {k: (lambda v, t=mine[k]: v + (t - v).detach()) for k in pre_relu}
+        _, g = T.value_and_grad(tm, state["params"], rows, inject=snap)
+        diff = max((a - b).abs().max().item() for a, b in zip(g, want))
+        del g, want, taps, mine
+        step = P.make_train_step(model, tx, mesh=mesh)
+        (state, m), ms, coll, mem = timed(lambda: step(state, rows, None))
+        mu = tree_leaves(state["opt_state"][0].mu)
+        mu_one = tree_leaves(P.shard_params(one_mu, mesh))
+        mu_diff = max((a - b).abs().max().item() for a, b in zip(mu, mu_one))
+        mu_same = max((a - (1 - tx.B1) * b).abs().max().item() for a, b in zip(mu, raw_g))
+        del mu, mu_one, raw_g
+        step_loss = float(m["loss"])
+        out[label] = {"loss": float(loss), "ntok": int(ntok), "step_loss": step_loss,
+                      "loss_rel": abs(float(loss) - float(ref_loss)) / float(ref_loss),
+                      "step_loss_rel": abs(step_loss - out["one"]["step_loss"])
+                      / out["one"]["step_loss"],
+                      "step_mu_share": mu_diff / mu_max, "step_mu_same": mu_same / mu_max,
+                      "grad_share": diff / gmax, "grad_share_unsnapped": raw / gmax,
+                      "gate_flips": flips, "gates": gates, "ms": ms, "collectives": coll,
+                      "max_memory": mem, "replicated_equal": equal_to_rank0(
+                          replicated_leaves(state["params"], mesh))}
+        del state
+    label = TP_TRAIN_MESHES[0][0]
+    mesh = meshes[label]
+    recipe = P.make_train_step(P.Transformer(cfg.with_(dropout=0.3)), tx, mesh=mesh,
+                               compute_dtype=torch.bfloat16)
+    state, rows = P.shard_state(fresh(), mesh), P.shard_batch(arrs, mesh)
+    (state, m), ms, coll, _ = timed(lambda: recipe(state, rows, P.mesh_generator(5, mesh)))
+    out["bf16"] = {"mesh": label, "loss": float(m["loss"]), "ms": ms, "collectives": coll,
+                   "replicated_equal": equal_to_rank0(replicated_leaves(state["params"],
+                                                                        mesh))}
+    return out
+
+
+def check_parallel_train(ranks: list) -> None:
+    """The training gates of phase "parallel" over every rank's ``tp_train``
+    result: each mesh's loss within rtol 1e-5 of one device's, its
+    gradients (the ReLU gates snapped to one device's) within
+    ``TRAIN_GRAD_LIMIT`` of the largest and at most ``TP_GATE_FLIP_LIMIT``
+    of its gates flipped without the snap; the timed step's loss within
+    rtol 1e-5 of one device's step's, its Adam first moment within
+    ``TP_STEP_MU_LIMIT`` of one device's step's and within
+    ``TP_STEP_SAME_LIMIT`` of ``(1 - b1)`` times the unsnapped gradient
+    (shares of the largest); the leaves that every rank holds
+    whole bit-equal to rank 0's after each step, the bf16 step's loss
+    finite."""
+    for k, r in enumerate(ranks):
+        for label, _, _ in TP_TRAIN_MESHES:
+            got = r[label]
+            if got["gate_flips"] > TP_GATE_FLIP_LIMIT * got["gates"]:
+                raise AssertionError(f"parallel train {label} rank {k}: {got['gate_flips']} of "
+                                     f"{got['gates']} ReLU gates flipped against one device's "
+                                     f"(limit {TP_GATE_FLIP_LIMIT} of them)")
+            if got["loss_rel"] > 1e-5 or got["grad_share"] > TRAIN_GRAD_LIMIT:
+                raise AssertionError(f"parallel train {label} rank {k}: loss {got['loss']} "
+                                     f"against one device's {r['one']['loss']} (rel "
+                                     f"{got['loss_rel']:.3g}, limit 1e-5), gradients "
+                                     f"{got['grad_share']:.3g} of the largest (limit "
+                                     f"{TRAIN_GRAD_LIMIT})")
+            if (got["step_loss_rel"] > 1e-5 or got["step_mu_share"] > TP_STEP_MU_LIMIT
+                    or got["step_mu_same"] > TP_STEP_SAME_LIMIT):
+                raise AssertionError(f"parallel train {label} rank {k}: the timed step's loss "
+                                     f"{got['step_loss']} against one device's step's "
+                                     f"{r['one']['step_loss']} (rel {got['step_loss_rel']:.3g}, "
+                                     f"limit 1e-5), its Adam first moment "
+                                     f"{got['step_mu_share']:.3g} of the largest from one "
+                                     f"device's (limit {TP_STEP_MU_LIMIT}) and "
+                                     f"{got['step_mu_same']:.3g} from (1 - b1) times its "
+                                     f"unsnapped gradient (limit {TP_STEP_SAME_LIMIT})")
+            if not got["replicated_equal"]:
+                raise AssertionError(f"parallel train {label} rank {k}: the replicated leaves "
+                                     "differ from rank 0's after the step")
+        bf16 = r["bf16"]
+        if not np.isfinite(bf16["loss"]) or not bf16["replicated_equal"]:
+            raise AssertionError(f"parallel train bf16 rank {k}: loss {bf16['loss']}, "
+                                 f"replicated leaves equal to rank 0's {bf16['replicated_equal']}")
+
+
 def parallel_rank(sizes: dict) -> dict:
     """One rank of phase "parallel", run by ``parallel.launch``: the
     IWSLT14-base model from the seed at ``sizes["layers"]`` layers on this
     rank's card (rank % cards; two ranks share one) or the CPU, the mesh
-    ``make_mesh(model=world)``, the logit check, then the engine run.  Every
-    rank's tokens and logits are gathered; rank 0 returns them."""
+    ``make_mesh(model=world)``, the logit checks (W8A8 "pallas" and W4A8),
+    the engine run, then the training of ``tp_train`` at
+    ``sizes["train"]``.  Every rank's tokens, logits and training results
+    are gathered; rank 0 returns them."""
     import torch
     import torch.distributed as dist
 
@@ -1772,17 +2077,31 @@ def parallel_rank(sizes: dict) -> dict:
     device = torch.device(sizes["device"])
     if device.type == "cuda":
         device = torch.device("cuda", rank % torch.cuda.device_count())
+    card = card_line() if device.type == "cuda" else "cpu"
     mesh = P.make_mesh(model=dist.get_world_size(), device=device)
     base = build_iwslt(device, sizes["layers"], batch=max(TP_LOGIT_ROWS), src_len=sizes["seq"])
     logits = tp_logits(base, mesh)
+    w4 = tp_w4a8_logits(base, mesh)
     res = tp_engine_run(base, mesh, sizes, f"rank {rank} of {mesh.model} ({sizes['label']})",
-                        card_line() if device.type == "cuda" else "cpu")
+                        card)
+    del base
+    t0 = time.perf_counter()
+    train = tp_train(device, sizes["train"], card)
+    train["seconds"] = time.perf_counter() - t0
+    print(f"parallel train rank {rank} (IWSLT14-base at {sizes['train']['layers']} + "
+          f"{sizes['train']['layers']} layers, B={sizes['train']['rows']} x "
+          f"{sizes['train']['seq']}, f32, dropout 0, probability rounding off; not a "
+          f"multi-card number): {train} on {card}", flush=True)
     everyone = [None] * dist.get_world_size()
     dist.all_gather_object(everyone, {"outs": res["outs"], "launches": res["launches"],
                                       "logits": logits["logits"],
-                                      "max_memory": res["max_memory"]})
+                                      "max_memory": res["max_memory"], "train": train,
+                                      "w4a8_logits": w4["logits"],
+                                      "w4a8_launches": w4["launches"]})
     res["ranks"] = everyone
     res["logit_diff"] = logits["diff"]
+    res["w4a8_logit_diff"] = w4["diff"]
+    res["w4a8_warnings"] = w4["warnings"]
     return res
 
 
@@ -1792,8 +2111,10 @@ def check_parallel(runs: dict, ref: dict, n: int, seq: int, counted: set) -> Non
     request back once with at most ``seq - 1`` tokens; every rank's tokens
     and logits the same; the tokens equal the reference's request for
     request; the logits bit-equal to one device's at ``TP_GATED_ROWS`` rows
-    at every step; the launches ``tp_expected`` gives for the runs in
-    ``counted``; ``fused_attn`` dropped with a warning; the KV bytes 1 /
+    at every step, the W4A8 ones too (K6/K7 stepping aside with a warning);
+    the launches ``tp_expected`` and, for the W4A8 logits,
+    ``tp_w4a8_expected`` give for the runs in ``counted``; ``fused_attn``
+    dropped with a warning; the KV bytes 1 /
     model of the reference's.  At fewer rows the difference is printed, not
     gated: the decode attention's f32 p.v product is a batched GEMM of B x
     heads / model matrices, whose kernel cuBLAS chooses by the batch count
@@ -1818,6 +2139,25 @@ def check_parallel(runs: dict, ref: dict, n: int, seq: int, counted: set) -> Non
         if any(d != 0.0 for d in diff):
             raise AssertionError(f"parallel {label}: the logits differ from one device's at "
                                  f"{TP_GATED_ROWS} rows, by step {diff}")
+        if "w4a8_logit_diff" in r:
+            diff = r["w4a8_logit_diff"][TP_GATED_ROWS]
+            if any(d != 0.0 for d in diff):
+                raise AssertionError(f"parallel {label}: the W4A8 logits differ from one "
+                                     f"device's at {TP_GATED_ROWS} rows, by step {diff}")
+            if not any("K6/K7" in w for w in r["w4a8_warnings"]):
+                raise AssertionError(f"parallel {label}: no warning that K6/K7 stepped aside")
+            if any(not bool((a == b).all()) for other in ranks
+                   for a, b in zip(other["w4a8_logits"], ranks[0]["w4a8_logits"])):
+                raise AssertionError(f"parallel {label}: the ranks' W4A8 logits differ")
+            if label in counted:
+                expect = tp_w4a8_expected(n)
+                for k, other in enumerate(ranks):
+                    if other["w4a8_launches"] != expect:
+                        raise AssertionError(f"parallel {label}: rank {k}'s W4A8 logits "
+                                             f"launched {other['w4a8_launches']}, expected "
+                                             f"{expect}")
+        if "train" in ranks[0]:
+            check_parallel_train([other["train"] for other in ranks])
         same = [a == b for a, b in zip(r["outs"], want)]
         if not all(same):
             raise AssertionError(f"parallel {label}: {len(same) - sum(same)} of {len(same)} "
@@ -1837,13 +2177,15 @@ def check_parallel(runs: dict, ref: dict, n: int, seq: int, counted: set) -> Non
 
 
 def run_parallel_path(device, card: str = "", sizes: dict = TP_ENGINE,
-                      one_backend: str = "nccl", timeout_s: float = 50.0) -> dict:
+                      one_backend: str = "nccl", timeout_s: float = 50.0,
+                      train: dict = TP_TRAIN) -> dict:
     """Phase "parallel": the model from the seed at ``sizes["layers"]``
     layers, the one-device reference engine (``fused_attn`` off) and a world
     of one rank over ``one_backend`` with ``make_mesh(model=1)`` in this
     process, then two ranks on the same card (``parallel.launch``, gloo,
-    ``make_mesh(data=1, model=2)``), each building the model from the seed;
-    the gates of ``check_parallel``."""
+    ``make_mesh(data=1, model=2)``), each building the model from the seed
+    and then training it at ``train``'s sizes (``tp_train``); the gates of
+    ``check_parallel``."""
     import tempfile
 
     import torch.distributed as dist
@@ -1863,21 +2205,36 @@ def run_parallel_path(device, card: str = "", sizes: dict = TP_ENGINE,
         finally:
             dist.destroy_process_group()
     one["model"] = 1
-    two = P.launch(parallel_rank, 2, {**sizes, "device": device.type,
+    two = P.launch(parallel_rank, 2, {**sizes, "device": device.type, "train": train,
                                       "label": "two ranks sharing one card through gloo"},
                    backend="gloo", timeout_s=timeout_s)
     two["model"] = 2
     runs = {f"{one_backend} x1": one, "gloo x2": two}
     counted = set(runs) if device.type == "cuda" else {f"{one_backend} x1"}
     check_parallel(runs, ref, n, sizes["seq"], counted)
+    train = [r["train"] for r in two["ranks"]]
+    k8 = sum(r["w4a8_launches"]["qgemm4"] for r in two["ranks"])
     print(f"parallel: two ranks sharing one {card} through gloo (not a multi-card number): "
           f"{two['useful_per_s']:.3f} useful tokens/s against one device's "
           f"{ref['useful_per_s']:.3f}; max_memory_allocated per rank "
           f"{[r['max_memory'] for r in two['ranks']]}, one device {ref['max_memory']}; "
           f"KV bytes a rank {two['kv_bytes']} of {ref['kv_bytes']}; the logits' largest "
           f"difference from one device's by rows and step: two ranks {two['logit_diff']}, "
-          f"one rank {one['logit_diff']}; every gate held", flush=True)
-    return {"reference": ref, "one": one, "two": two}
+          f"one rank {one['logit_diff']}, W4A8 two ranks {two['w4a8_logit_diff']} ({k8} K8 "
+          f"launches on the two ranks); train "
+          f"step ms a rank: one device {[t['one']['ms'] for t in train]}, "
+          + ", ".join(f"{label} {[t[label]['ms'] for t in train]} (loss rel "
+                      f"{[t[label]['loss_rel'] for t in train]}, gradients "
+                      f"{[t[label]['grad_share'] for t in train]} of the largest, step loss "
+                      f"rel {[t[label]['step_loss_rel'] for t in train]}, step first moment "
+                      f"{[t[label]['step_mu_share'] for t in train]} of the largest, "
+                      f"{[t[label]['step_mu_same'] for t in train]} from the gradient's, "
+                      f"collectives {train[0][label]['collectives']}, max_memory_allocated "
+                      f"{[t[label]['max_memory'] for t in train]})"
+                      for label, _, _ in TP_TRAIN_MESHES)
+          + f", bf16 {[t['bf16']['ms'] for t in train]} (loss "
+          f"{[t['bf16']['loss'] for t in train]}); every gate held", flush=True)
+    return {"reference": ref, "one": one, "two": two, "launches": {"qgemm4": k8}}
 
 
 # the train phase: the shipped recipe (scripts/train_iwslt14.py --dtype bf16
@@ -2574,7 +2931,7 @@ def main() -> int:
         run_engine_path(device, base, card=card)
 
     with phase("parallel"):
-        run_parallel_path(device, card=card)
+        parallel_res = run_parallel_path(device, card=card)
 
     with phase("train"):
         run_train_path(device, card=card)
@@ -2588,13 +2945,14 @@ def main() -> int:
     signal.alarm(0)
     faulthandler.cancel_dump_traceback_later()
     # launches: K1/K2 on the chunk-staged main path, K3/K5 on the serving path,
-    # K6/K7 on the int4 path; K4/K8 have no caller on any path (as in the JAX
-    # package).  No single PyTorch call computes any of them, so library_ms is
+    # K6/K7 on the int4 path, K8 on the W4A8 tensor-parallel view of phase
+    # "parallel" (its two ranks' launches summed); K4 has no caller on any
+    # path (as in the JAX package).  No single PyTorch call computes any of them, so library_ms is
     # null and the partial yardstick stands beside it
     kernels = []
     for key, res in (("qout", main_res), ("q8", main_res), ("attn", serve_res),
                      ("w8a8", serve_res), ("qout4", int4_res), ("q84", int4_res),
-                     ("qgemm", None), ("qgemm4", None)):
+                     ("qgemm", None), ("qgemm4", parallel_res)):
         name_k, source, replaces = KERNELS[key]
         kernels.append({"name": name_k, "route": "cuda", "source": source,
                         "replaces": replaces,

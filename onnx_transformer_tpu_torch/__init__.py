@@ -19,14 +19,16 @@ package.  It covers four serving paths of the IWSLT14 model:
   staged prefill runs K1/K2 (or K6/K7, or K5), its chunks the chunk-staged
   step or ``decode_step`` (K3, K5), and slot-group beam search.
 
-Tensor parallelism for serving (``parallel``): one process per rank
+Tensor and data parallelism (``parallel``): one process per rank
 (``launch``), a (data, model) mesh over ``torch.distributed``
-(``make_mesh``), Megatron shardings of the parameters and the W8A8 payloads
-(``shard_params``, ``shard_payloads``) and the collectives GSPMD inserts in
-the JAX package written out; the model's tensor-parallel view
-(``Transformer(cfg, mesh=mesh)``), the W8A8 linears, the KV-cached decodes
-and the engine (``mesh=``, and the serve command line's ``--tp``) run over
-it, K5 in the column-parallel linears.
+(``make_mesh``), Megatron shardings of the parameters and the W8A8/W4A8
+payloads (``shard_params``, ``shard_payloads``) and the collectives GSPMD
+inserts in the JAX package written out; the model's tensor-parallel view
+(``Transformer(cfg, mesh=mesh)``), the W8A8 and W4A8 linears, the
+KV-cached decodes and the engine (``mesh=``, and the serve command line's
+``--tp``) run over it, K5 in the column-parallel W8A8 linears; so does
+training (``make_train_step(..., mesh=mesh)`` over ``shard_state`` and
+``shard_batch``, or per-rank loader shards through ``global_batch``).
 
 Every model method and linear impl takes the reference's ``taps``/``inject``
 seam (``ops.layers.tap``), through which ``quant.calibrate`` records
@@ -120,9 +122,12 @@ from onnx_transformer_tpu_torch.parallel import (  # noqa: E402
     DATA_AXIS,
     MODEL_AXIS,
     Mesh,
+    global_batch,
     launch,
     make_mesh,
+    mesh_generator,
     param_pspecs,
+    replicate_tree,
     shard_params,
     shard_payloads,
 )
@@ -160,10 +165,13 @@ from onnx_transformer_tpu_torch.serving.engine import (  # noqa: E402
 from onnx_transformer_tpu_torch.train.trainer import (  # noqa: E402
     TrainState,
     batch_to_arrays,
+    gather_state,
     init_state,
     make_optimizer,
     make_train_step,
     run_epoch,
+    shard_batch,
+    shard_state,
 )
 from onnx_transformer_tpu_torch.utils.torch_compat import (  # noqa: E402
     from_torch_state_dict,
@@ -188,5 +196,6 @@ __all__ = [
     "load_exported", "load_manifest", "export_qdq_onnx", "from_torch_state_dict",
     "to_torch_state_dict", "load_reference_checkpoint", "DATA_AXIS", "MODEL_AXIS", "Mesh",
     "launch", "make_mesh", "param_pspecs", "shard_params", "shard_payloads",
-    "shard_linear_impl",
+    "shard_linear_impl", "mesh_generator", "global_batch", "replicate_tree", "shard_state",
+    "shard_batch", "gather_state",
 ]

@@ -32,6 +32,21 @@ is added once (the plain linear here, a mesh-aware impl such as
 per-token scale of a sharded row is the whole row's (a max over the
 group).  LayerNorm, the residual stream, the embeddings and the generator
 stay replicated, so every rank computes the same logits.
+
+Under autograd the view places Megatron's f/g pair
+(``parallel.collectives``): ``f`` (``model_copy``: the identity forward, a
+sum over the model group of the gradient backward) where a replicated
+activation enters column-parallel linears (the self-attention's q/k/v
+input, the cross-attention's q input, the encoder memory that feeds the
+cross k/v, the ``w_1`` input), and ``g`` (``model_sum``: the sum forward,
+the identity backward) on the row-parallel outputs.  Without autograd
+``f`` is no call at all.  Dropout draws its masks in call order: with a
+generator seeded alike on every rank of a model group
+(``parallel.mesh_generator``), the replicated activations get the same
+masks on each rank; for the sharded ones (a rank's heads of the attention
+probabilities, its ``d_ff / model`` units of the FFN) each rank draws the
+whole tensor's mask and keeps its own block, so the generators stay in step
+and the masks of a model group are one device's.
 """
 
 from __future__ import annotations
@@ -44,7 +59,7 @@ import torch
 from onnx_transformer_tpu_torch.device import resolve_device
 from onnx_transformer_tpu_torch.ops import layers as L
 from onnx_transformer_tpu_torch.ops.kernels.decode_attention import decode_attention_int8
-from onnx_transformer_tpu_torch.parallel.collectives import model_sum
+from onnx_transformer_tpu_torch.parallel.collectives import model_copy, model_sum
 from onnx_transformer_tpu_torch.parallel.sharding import check_divisible
 from onnx_transformer_tpu_torch.quant.core import quantize_act_per_token
 
@@ -217,8 +232,16 @@ class Transformer:
             "generator": lin(cfg.d_model, cfg.tgt_vocab_size),
         }
 
-    def _drop(self, x, rng: Optional[torch.Generator], train: bool) -> torch.Tensor:
-        return L.dropout(x, self.cfg.dropout, rng, train)
+    def _shard(self, dim: int) -> Optional[tuple[int, int, int]]:
+        """Dropout's ``shard`` for an activation split over ``model`` along
+        ``dim`` (None off a mesh)."""
+        if self.mesh is None or self.mesh.model == 1:
+            return None
+        return (dim, self.mesh.model_rank, self.mesh.model)
+
+    def _drop(self, x, rng: Optional[torch.Generator], train: bool,
+              shard: Optional[tuple[int, int, int]] = None) -> torch.Tensor:
+        return L.dropout(x, self.cfg.dropout, rng, train, shard)
 
     def embed_src(self, params: Params, src: torch.Tensor, rng=None,
                   train: bool = False) -> torch.Tensor:
@@ -248,6 +271,13 @@ class Transformer:
         h = self.heads
         quant = cfg.quantize_attn_probs
         seams = taps is not None or inject is not None
+        if self.mesh is not None:
+            # f: the replicated stream enters the column-parallel q (and, in
+            # self-attention, k and v); the cross k/v's memory took its f in
+            # decode
+            x = model_copy(q_in, self.mesh)
+            k_in, v_in = (x if k_in is q_in else k_in), (x if v_in is q_in else v_in)
+            q_in = x
         q_full = lin(f"{name}.linears.0", q_in, p["q"]["w"], p["q"]["b"], taps, inject)
         q = L.split_heads(q_full, h)
         single_step = q.shape[2] == 1 and not train
@@ -310,14 +340,17 @@ class Transformer:
                     v = _cache_update(self_cache["v"], v, cache_index)
         ctx = L.scaled_dot_attention(q, k, v, mask, quant, drop_rate=cfg.dropout,
                                      rng=rng, train=train,
-                                     name=name, taps=taps, inject=inject)
+                                     name=name, taps=taps, inject=inject,
+                                     drop_shard=self._shard(1))
         return out_proj(L.merge_heads(ctx))
 
     def _ffn(self, p: Params, name: str, x, rng, train, taps, inject,
              lin: LinearImpl) -> torch.Tensor:
         """w_2(dropout(relu(w_1(x))))."""
+        if self.mesh is not None:
+            x = model_copy(x, self.mesh)   # f: into the column-parallel w_1
         hcur = torch.relu(lin(f"{name}.w_1", x, p["w1"]["w"], p["w1"]["b"], taps, inject))
-        hcur = self._drop(hcur, rng, train)
+        hcur = self._drop(hcur, rng, train, self._shard(-1))
         return self._row_linear(lin, f"{name}.w_2", hcur, p["w2"], taps, inject)
 
     def _sublayer(self, x, ln_p, fn, rng, train) -> torch.Tensor:
@@ -411,6 +444,9 @@ class Transformer:
         if embed_offset is not None:
             offset = embed_offset
         x = self.embed_tgt(params, tgt_in, offset, rng, train)
+        if self.mesh is not None and memory is not None:
+            # f: the memory feeds every layer's column-parallel cross k/v
+            memory = model_copy(memory, self.mesh)
         tmask = tgt_mask[:, None, :, :] if tgt_mask is not None else None
         smask = src_mask[:, None, :, :] if src_mask is not None else None
         for i, lp in enumerate(params["decoder"]["layers"]):

@@ -119,14 +119,26 @@ def positional_encoding(x: torch.Tensor, offset=0, max_len: int = 5000) -> torch
 
 
 def dropout(x: torch.Tensor, rate: float, rng: Optional[torch.Generator],
-            train: bool) -> torch.Tensor:
+            train: bool, shard: Optional[tuple[int, int, int]] = None) -> torch.Tensor:
     """Inverted dropout: ``where(keep_mask, x / keep, 0)`` with keep = 1 - rate
     and the mask drawn from ``rng`` (a generator on x's device).  The
-    identity when not training, at rate 0, or without a generator."""
+    identity when not training, at rate 0, or without a generator.
+
+    ``shard`` = (dim, index, parts): ``x`` is block ``index`` of ``parts``
+    equal blocks along ``dim`` of a whole tensor (a tensor-parallel rank's
+    heads or columns).  The whole tensor's mask is drawn and this block of
+    it kept, so every rank's generator advances alike and the masks are
+    those of one device drawing for the whole tensor."""
     if not train or rate == 0.0 or rng is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    shape = list(x.shape)
+    if shard is not None:
+        dim, index, parts = shard
+        shape[dim] *= parts
+    mask = torch.rand(shape, generator=rng, device=x.device) < keep
+    if shard is not None:
+        mask = mask.narrow(dim, index * x.shape[dim], x.shape[dim])
     return torch.where(mask, true_div(x, keep), 0.0)
 
 
@@ -152,12 +164,14 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 def attention_probs(scores: torch.Tensor, mask: Optional[torch.Tensor],
                     quantize: bool, drop_rate: float = 0.0,
                     rng: Optional[torch.Generator] = None,
-                    train: bool = False) -> torch.Tensor:
-    """softmax(mask_fill(scores, -1e9)) [+ dropout] [+ 1/127 fake-quant]."""
+                    train: bool = False,
+                    drop_shard: Optional[tuple[int, int, int]] = None) -> torch.Tensor:
+    """softmax(mask_fill(scores, -1e9)) [+ dropout] [+ 1/127 fake-quant].
+    ``drop_shard``: :func:`dropout`'s ``shard``."""
     if mask is not None:
         scores = scores.masked_fill(~mask, NEG_INF)
     p = torch.softmax(scores, dim=-1)
-    p = dropout(p, drop_rate, rng, train)
+    p = dropout(p, drop_rate, rng, train, drop_shard)
     if quantize:
         p = quantize_probs(p)
     return p
@@ -167,14 +181,16 @@ def scaled_dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          mask: Optional[torch.Tensor], quantize: bool = True,
                          drop_rate: float = 0.0, rng: Optional[torch.Generator] = None,
                          train: bool = False, name: str = "attn", taps: TapDict = None,
-                         inject: InjectDict = None) -> torch.Tensor:
+                         inject: InjectDict = None,
+                         drop_shard: Optional[tuple[int, int, int]] = None) -> torch.Tensor:
     """q, k, v: [B, H, T, dk]; mask broadcastable to [B, H, Tq, Tk].  Taps
-    ``{name}.scores``, ``{name}.probs`` and ``{name}.context``."""
+    ``{name}.scores``, ``{name}.probs`` and ``{name}.context``.
+    ``drop_shard``: :func:`dropout`'s ``shard`` of the probabilities."""
     d_k = q.shape[-1]
     scores = true_div(torch.matmul(q, k.transpose(-1, -2)),
                       float(np.sqrt(d_k).astype(np.float32)))
     scores = tap(f"{name}.scores", scores, taps, inject)
-    p = attention_probs(scores, mask, quantize, drop_rate, rng, train)
+    p = attention_probs(scores, mask, quantize, drop_rate, rng, train, drop_shard)
     p = tap(f"{name}.probs", p, taps, inject)
     return tap(f"{name}.context", torch.matmul(p, v), taps, inject)
 

@@ -94,16 +94,32 @@ def make_mesh(data: int = -1, model: int = 1, device=None) -> Mesh:
                 dm.get_group(MODEL_AXIS), dev)
 
 
-def local_rows(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """This rank's rows of a batch ``x``: the batch split over ``data``,
-    which JAX's ``data_sharding`` (a ``P("data")`` placement) asks GSPMD
-    for."""
+def local_rows(x: torch.Tensor, mesh: Optional[Mesh], dim: int = 0) -> torch.Tensor:
+    """This rank's rows of a batch ``x`` along ``dim``: the batch split over
+    ``data``, which JAX's ``data_sharding`` (a ``P("data")`` placement, or
+    ``P(None, "data")`` for ``dim=1``) asks GSPMD for."""
     if mesh is None or mesh.data == 1:
         return x
-    if x.shape[0] % mesh.data:
-        raise ValueError(f"a batch of {x.shape[0]} rows does not split over data={mesh.data}")
-    n = x.shape[0] // mesh.data
-    return x[mesh.data_rank * n:(mesh.data_rank + 1) * n]
+    if x.shape[dim] % mesh.data:
+        raise ValueError(f"a batch of {x.shape[dim]} rows does not split over data={mesh.data}")
+    n = x.shape[dim] // mesh.data
+    return x.narrow(dim, mesh.data_rank * n, n)
+
+
+# a large odd multiplier, so that the seeds of nearby data ranks and steps
+# do not coincide
+_DATA_SEED_STRIDE = 0x9E3779B97F4A7C15
+
+
+def mesh_generator(seed: int, mesh: Optional[Mesh], device=None) -> torch.Generator:
+    """A ``torch.Generator`` for this rank's dropout: seeded alike on every
+    rank of a model group, so that the replicated activations draw the same
+    masks there (and the sharded ones, each rank keeping its block of one
+    whole-tensor draw, one device's masks), and differently on each data
+    rank, whose rows differ."""
+    dev = resolve_device(device) if mesh is None else mesh.device
+    rank = 0 if mesh is None else mesh.data_rank
+    return torch.Generator(device=dev).manual_seed((seed + _DATA_SEED_STRIDE * rank) % (1 << 63))
 
 
 def gather_rows(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:

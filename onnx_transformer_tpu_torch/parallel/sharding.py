@@ -1,5 +1,5 @@
-"""Megatron tensor-parallel layout of the parameters and the W8A8 payloads
-(port of ``onnx_transformer_tpu/parallel/sharding.py``).
+"""Megatron tensor-parallel layout of the parameters and the W8A8/W4A8
+payloads (port of ``onnx_transformer_tpu/parallel/sharding.py``).
 
 Attention heads and the FFN's hidden units split over the ``model`` axis,
 so a rank holds h/TP heads and d_ff/TP hidden units (weights stored (in,
@@ -13,9 +13,11 @@ out)):
 
 A spec is a tuple of axis names per dimension, ``()`` for replicated (JAX's
 ``PartitionSpec`` as a tuple).  Where JAX places a whole array on the mesh,
-:func:`shard_params` and :func:`shard_payloads` return this rank's slices;
-the collectives that GSPMD then inserts are the model's and the linear
-impls' own calls (``parallel/collectives.py``).
+:func:`shard_params` and :func:`shard_payloads` return this rank's slices
+(packed int4 weights by whole row pairs), and :func:`gather_params` gives
+the whole arrays back, as fetching a global array does; the collectives
+that GSPMD then inserts are the model's and the linear impls' own calls
+(``parallel/collectives.py``).
 """
 
 from __future__ import annotations
@@ -81,6 +83,12 @@ def _walk(params: Any, specs: Any, fn) -> Any:
     return fn(params, specs)
 
 
+def replicated_mask(params: Any) -> Any:
+    """A tree of bools matching ``params``: True where a leaf is replicated
+    over ``model`` (every rank holds it whole)."""
+    return _walk(params, param_pspecs(params), lambda _, spec: MODEL_AXIS not in spec)
+
+
 def shard_params(params: Any, mesh) -> Any:
     """This rank's slices of a full parameter tree, on the mesh's device."""
     dev = mesh.device
@@ -113,18 +121,51 @@ def linear_kind(name: str) -> str:
     return "replicated"
 
 
+PAYLOAD_SPECS = {
+    "column": {"wq": (None, MODEL_AXIS), "wq_packed": (None, MODEL_AXIS), "sw": (MODEL_AXIS,),
+               "b": (MODEL_AXIS,)},
+    "row": {"wq": (MODEL_AXIS, None), "wq_packed": (MODEL_AXIS, None), "sw": (), "b": ()},
+    "replicated": {"wq": (), "wq_packed": (), "sw": (), "b": ()},
+}
+
+
 def shard_payloads(payloads: dict, mesh) -> dict:
-    """This rank's slices of W8A8 payloads ({name: {wq, sw, b}}) in the
-    layout of :func:`param_pspecs`: column-parallel ``wq[:, cols]``,
-    ``sw[cols]``, ``b[cols]``; row-parallel ``wq[rows, :]`` with ``sw`` and
-    ``b`` whole; the rest as they are."""
+    """This rank's slices of W8A8 payloads ({name: {wq, sw, b}}) or W4A8
+    ones ({name: {wq_packed, sw, b}}, two int4 rows a byte) in the layout
+    of :func:`param_pspecs`: column-parallel ``wq[:, cols]``, ``sw[cols]``,
+    ``b[cols]``; row-parallel ``wq[rows, :]`` with ``sw`` and ``b`` whole
+    (packed: whole row pairs, so K / model must be even); the rest as they
+    are."""
     out = {}
     for name, p in payloads.items():
-        if set(p) != {"wq", "sw", "b"}:
-            raise ValueError(f"{name}: only W8A8 payloads (wq, sw, b) shard, not {sorted(p)}")
+        if set(p) not in ({"wq", "sw", "b"}, {"wq_packed", "sw", "b"}):
+            raise ValueError(f"{name}: only W8A8 payloads (wq, sw, b) and W4A8 ones "
+                             f"(wq_packed, sw, b) shard, not {sorted(p)}")
         kind = linear_kind(name)
-        spec = {"column": {"wq": (None, MODEL_AXIS), "sw": (MODEL_AXIS,), "b": (MODEL_AXIS,)},
-                "row": {"wq": (MODEL_AXIS, None), "sw": (), "b": ()},
-                "replicated": {"wq": (), "sw": (), "b": ()}}[kind]
-        out[name] = {k: _local(v, spec[k], mesh).to(mesh.device) for k, v in p.items()}
+        if kind == "row" and "wq_packed" in p and p["wq_packed"].shape[0] % mesh.model:
+            raise ValueError(f"{name}: K = {2 * p['wq_packed'].shape[0]} rows of packed int4 "
+                             f"do not split into whole row pairs over model={mesh.model} "
+                             "(K / model must be even)")
+        out[name] = {k: _local(v, PAYLOAD_SPECS[kind][k], mesh).to(mesh.device)
+                     for k, v in p.items()}
     return out
+
+
+def _whole(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The whole array of which ``x`` is this rank's slice laid out by
+    ``spec``: the model group's slices gathered in rank order."""
+    for dim, axis in enumerate(spec):
+        if axis == MODEL_AXIS:
+            import torch.distributed as dist
+
+            parts = [torch.empty_like(x) for _ in range(mesh.model)]
+            dist.all_gather(parts, x.contiguous(), group=mesh.model_group)
+            return torch.cat(parts, dim=dim)
+    return x
+
+
+def gather_params(params: Any, mesh) -> Any:
+    """The whole parameter tree from this rank's slices (the inverse of
+    :func:`shard_params`), the same on every rank of the model group: what
+    fetching a sharded global array gives in the JAX package."""
+    return _walk(params, param_pspecs(params), lambda x, spec: _whole(x, spec, mesh))

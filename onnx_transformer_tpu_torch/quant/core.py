@@ -101,21 +101,37 @@ def fake_quant_weight_per_channel(w: torch.Tensor, bits: int = 8) -> torch.Tenso
     return dequantize(q, s[None, :])
 
 
-def token_absmax(x: torch.Tensor, mesh=None) -> torch.Tensor:
-    """[..., d] -> [..., 1] per-token max |x|.  With a tensor-parallel
-    ``mesh``, ``x`` holds this rank's columns of each row, and the maximum is
-    the whole row's: a max over the model group."""
-    s = x.abs().amax(dim=-1, keepdim=True)
-    if mesh is not None:
-        from onnx_transformer_tpu_torch.parallel.collectives import model_max
+def sharded_absmax(x: torch.Tensor, dim: int, mesh=None) -> torch.Tensor:
+    """max |x| along ``dim``, kept as a size-1 dim.  With a tensor-parallel
+    ``mesh``, ``x`` holds this rank's part of that axis, and the maximum is
+    the whole axis's: a max over the model group, whose gradient under
+    autograd splits at a tie across the group as ``jax.grad``'s does
+    (``parallel.collectives.model_absmax``)."""
+    grad = torch.is_grad_enabled() and x.requires_grad
+    if mesh is None or (grad and mesh.model == 1):
+        return x.abs().amax(dim=dim, keepdim=True)
+    from onnx_transformer_tpu_torch.parallel.collectives import model_absmax, model_max
 
-        s = model_max(s, mesh)
-    return s
+    if grad:
+        return model_absmax(x, dim, mesh)
+    return model_max(x.abs().amax(dim=dim, keepdim=True), mesh)
+
+
+def token_absmax(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """[..., d] -> [..., 1] per-token max |x|; with a tensor-parallel
+    ``mesh``, of the whole row (:func:`sharded_absmax`)."""
+    return sharded_absmax(x, -1, mesh)
+
+
+def sharded_absmax_scale(x: torch.Tensor, dim: int, bits: int = 8, mesh=None) -> torch.Tensor:
+    """:func:`absmax_scale` along ``dim`` (kept) over the whole axis, of
+    which ``x`` holds this rank's part under a ``mesh``."""
+    return true_div(_floor_scale(sharded_absmax(x, dim, mesh)), qmax_for(bits))
 
 
 def act_scale_per_token(x: torch.Tensor, bits: int = 8, mesh=None) -> torch.Tensor:
     """[..., d] -> [..., 1] scales (of the whole row, under a ``mesh``)."""
-    return true_div(_floor_scale(token_absmax(x, mesh)), qmax_for(bits))
+    return sharded_absmax_scale(x, -1, bits, mesh)
 
 
 def quantize_act_per_token(x: torch.Tensor, bits: int = 8, mesh=None):

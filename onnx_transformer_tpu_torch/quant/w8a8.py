@@ -30,7 +30,8 @@ with the bias once, so both are bit-equal to one device; ``fake`` sums its
 f32 partial products.  The q/k/v outputs take the whole row's scale.  Mode
 ``fused`` quantizes an output row whole inside K1/K2, of which a rank holds
 only part: under a mesh it warns and runs mode ``pallas``, whose
-column-parallel linears keep K5.
+column-parallel linears keep K5.  ``shard_linear_impl`` makes the
+tensor-parallel counterpart of a one-device W8A8, W4A8 or QAT impl.
 
 ``bits`` sets the width of the weights and activations (qmax 2^(bits-1)-1,
 stored in int8).  The kernels of mode ``fused`` exist for 8 bits only, so
@@ -183,6 +184,7 @@ def make_w8a8_linear_impl(payloads: dict, mode: Mode = "int8", bits: int = 8,
     lin.mode = mode
     lin.bits = bits
     lin.mesh = mesh
+    lin.shard = lambda m: make_w8a8_linear_impl(shard_payloads(payloads, m), mode, bits, m)
     # q/k/v outputs sit exactly on the per-token int8 grid, so a decode
     # attention may recover their int8 form losslessly
     lin.quantized_output_grid = True
@@ -191,14 +193,16 @@ def make_w8a8_linear_impl(payloads: dict, mode: Mode = "int8", bits: int = 8,
 
 def shard_linear_impl(lin: Callable, mesh) -> Callable:
     """The tensor-parallel counterpart of a linear impl made for one device:
-    the plain linear stays as it is, a W8A8 impl is made again over this
-    rank's payload slices; any other impl is refused."""
-    if lin is default_linear:
+    the plain linear stays as it is; a W8A8, W4A8 or QAT impl is made again
+    for ``mesh`` (over this rank's payload slices); an impl already made for
+    ``mesh`` is returned as it is; any other impl is refused."""
+    if lin is default_linear or getattr(lin, "mesh", None) is mesh:
         return lin
-    if getattr(lin, "mode", None) not in MODES or getattr(lin, "mesh", None) is not None:
-        raise ValueError("a tensor-parallel mesh takes the plain linear or a one-device W8A8 "
-                         "impl (make_w8a8_linear_impl)")
-    return make_w8a8_linear_impl(shard_payloads(lin.payloads, mesh), lin.mode, lin.bits, mesh)
+    if getattr(lin, "shard", None) is None or getattr(lin, "mesh", None) is not None:
+        raise ValueError("a tensor-parallel mesh takes the plain linear or a one-device W8A8, "
+                         "W4A8 or QAT impl (make_w8a8_linear_impl, make_w4a8_linear_impl, "
+                         "make_qat_linear_impl)")
+    return lin.shard(mesh)
 
 
 def quantize_transformer(model: Transformer, params: dict,

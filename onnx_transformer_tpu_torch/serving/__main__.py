@@ -15,13 +15,17 @@ gives a warning and params from a seed.  It runs on the card unless
 ``--tp N`` serves over a tensor-parallel mesh of N ranks (``make_mesh(model=N)``),
 one process each (``parallel.launch``): each rank builds the engine, shards
 the weights and its KV cache, and rank 0's translations are printed.  The
-ranks meet over nccl, one card each, or over gloo on the CPU.  Modes fp32,
-int8 and pallas shard; int4 does not.
+ranks meet over nccl, one card each, or over gloo on the CPU.  Every mode
+shards: int4's packed payloads by whole row pairs, with K6/K7 stepping aside
+(they quantize each output row whole) for K8 on the column-parallel linears
+and the plain chain on the row-parallel ones.
 
   echo "das ist ein test" | python -m onnx_transformer_tpu_torch.serving --mode fp32
   python -m onnx_transformer_tpu_torch.serving --input src.bpe --mode pallas \\
       --kv-dtype int8 --fused-attn
   python -m onnx_transformer_tpu_torch.serving --input src.bpe --mode int8 \\
+      --kv-dtype int8 --tp 2 --platform cpu
+  python -m onnx_transformer_tpu_torch.serving --input src.bpe --mode int4 \\
       --kv-dtype int8 --tp 2 --platform cpu
 """
 

@@ -44,8 +44,8 @@ Nothing inside a refill or a chunk reads a device value on the host.
 Tensor parallelism (``mesh=``, a (data, model) mesh of ``parallel.make_mesh``;
 JAX's "BASELINE config 5"): every rank builds the engine from the full
 params and linear impl, which it shards itself (``parallel.shard_params``,
-``quant.w8a8.shard_linear_impl``), and runs the tensor-parallel view of the
-model.  A rank's KV cache and staging ring hold its ``d_model / model``
+``quant.w8a8.shard_linear_impl``: W8A8 or W4A8), and runs the
+tensor-parallel view of the model.  A rank's KV cache and staging ring hold its ``d_model / model``
 columns (its heads in the fp32 layout); the scales, masks, tags, counters
 and output rings are whole on every rank (JAX's ``P()``).  Every rank runs
 the same host loop over the same submitted requests and returns the same

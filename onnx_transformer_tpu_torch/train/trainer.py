@@ -19,8 +19,19 @@
   waits for the device; ``run_epoch`` reads the metrics back at its log
   points and at the end.
 
-Data and tensor parallelism over a mesh (``shard_state``, ``shard_batch``,
-``mesh=``) wait for a port of ``parallel/``.
+Data and tensor parallelism over a (data, model) mesh
+(``parallel.make_mesh``): ``shard_state`` places the parameters and Adam's
+moments by ``param_pspecs`` (the counts and ``step`` replicated),
+``shard_batch`` gives this rank's rows (``parallel.global_batch`` takes a
+loader shard's), and ``make_train_step(..., mesh=mesh)`` runs the
+tensor-parallel view ``Transformer(cfg, mesh)``, whose Megatron f/g pair
+carries the gradients across the model group.  As in the JAX package's
+jitted step, the loss of a microbatch is its KL sum over the token count
+of the whole data-sharded microbatch: each rank sums its count over
+``data`` before the division, and the step sums its gradients (and the
+KL, for the metrics) over ``data`` in one flat all-reduce
+(``parallel.collectives.data_sum``).  ``gather_state`` gives the whole
+state back, as fetching global arrays does in JAX.
 """
 
 from __future__ import annotations
@@ -34,7 +45,11 @@ import torch
 
 from onnx_transformer_tpu_torch.device import resolve_device
 from onnx_transformer_tpu_torch.models.transformer import Transformer, default_linear
+from onnx_transformer_tpu_torch.parallel.collectives import data_sum
+from onnx_transformer_tpu_torch.parallel.mesh import local_rows
+from onnx_transformer_tpu_torch.parallel.sharding import gather_params, shard_params
 from onnx_transformer_tpu_torch.params import tree_leaves, tree_map, tree_unflatten
+from onnx_transformer_tpu_torch.quant.w8a8 import shard_linear_impl
 from onnx_transformer_tpu_torch.train.loss import loss_and_ntokens
 from onnx_transformer_tpu_torch.train.schedule import noam_schedule
 
@@ -112,31 +127,60 @@ def init_state(model: Transformer, tx: AdamNoam, seed: int = 0, device=None) -> 
 
 
 def _loss_fn(model, params, src, tgt_in, tgt_y, src_mask, tgt_mask, rng, smoothing,
-             lin=default_linear, compute_dtype=None):
+             lin=default_linear, compute_dtype=None, taps=None, inject=None):
     """Forward + label-smoothing KL -> (loss / ntok, loss, ntok) with ntok
     at least 1.  Under ``compute_dtype`` every f32 leaf is cast inside the
-    loss; the log-softmax and KL run in f32."""
+    loss; the log-softmax and KL run in f32.  Under a mesh (``model.mesh``)
+    ``ntok`` is the whole data-sharded batch's, summed over ``data`` before
+    the floor at 1; ``loss`` stays this rank's KL sum.  ``taps`` and
+    ``inject`` reach the model's seam (``ops.layers.tap``)."""
     if compute_dtype is not None:
         params = tree_map(lambda p: p.to(compute_dtype) if p.dtype == torch.float32 else p,
                           params)
-    h = model.forward(params, src, tgt_in, src_mask, tgt_mask, rng=rng, train=True, lin=lin)
-    logits = model.generate(params, h, lin=lin, log_probs=False)
+    h = model.forward(params, src, tgt_in, src_mask, tgt_mask, rng=rng, train=True,
+                      taps=taps, inject=inject, lin=lin)
+    logits = model.generate(params, h, taps=taps, inject=inject, lin=lin, log_probs=False)
     logp = torch.log_softmax(logits.float(), dim=-1)
     loss, ntok = loss_and_ntokens(logp, tgt_y, model.cfg.pad_id, smoothing)
+    if model.mesh is not None:
+        ntok = data_sum([ntok], model.mesh)[0]
     ntok = ntok.clamp_min(1)
     return loss / ntok, loss, ntok
 
 
-def value_and_grad(model: Transformer, params, micro: tuple, rng=None, smoothing: float = 0.1,
-                   lin=default_linear, compute_dtype=None) -> tuple[tuple, list]:
-    """((loss / ntok, loss, ntok), gradients) of the training loss on one
-    microbatch, the gradients a list in ``params.tree_leaves`` order.  The
-    loss tensors are detached."""
+def _local_grads(model: Transformer, params, micro: tuple, rng, smoothing: float, lin,
+                 compute_dtype, taps=None, inject=None) -> tuple[tuple, list]:
+    """((loss / ntok, loss, ntok), gradients) of this rank's part of the
+    loss, detached; under a mesh not yet summed over ``data``."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     loss_mean, loss, ntok = _loss_fn(model, tree_unflatten(params, leaves), *micro, rng,
-                                     smoothing, lin, compute_dtype)
+                                     smoothing, lin, compute_dtype, taps, inject)
     grads = torch.autograd.grad(loss_mean, leaves, materialize_grads=True)
     return (loss_mean.detach(), loss.detach(), ntok), list(grads)
+
+
+def _data_summed(grads: list, loss: torch.Tensor, mesh) -> tuple[list, torch.Tensor]:
+    """The gradients and the KL sum over ``data``, in one flat all-reduce."""
+    if mesh is None or mesh.data == 1:
+        return grads, loss
+    *grads, loss = data_sum(grads + [loss.reshape(1)], mesh)
+    return grads, loss[0]
+
+
+def value_and_grad(model: Transformer, params, micro: tuple, rng=None, smoothing: float = 0.1,
+                   lin=default_linear, compute_dtype=None, taps=None,
+                   inject=None) -> tuple[tuple, list]:
+    """((loss / ntok, loss, ntok), gradients) of the training loss on one
+    microbatch, the gradients a list in ``params.tree_leaves`` order.  The
+    loss tensors are detached.  Under a mesh (``model.mesh``, over this
+    rank's parameter slices and batch rows) those of the whole
+    data-sharded microbatch: the gradients this rank's slices of the whole
+    batch's, the loss and count the whole batch's.  ``taps`` and ``inject``
+    reach the model's seam (``ops.layers.tap``)."""
+    (_, loss, ntok), grads = _local_grads(model, params, micro, rng, smoothing, lin,
+                                          compute_dtype, taps, inject)
+    grads, loss = _data_summed(grads, loss, model.mesh)
+    return (loss / ntok, loss, ntok), grads
 
 
 def make_train_step(model: Transformer, tx: AdamNoam, mesh=None, accum: int = 1,
@@ -154,13 +198,22 @@ def make_train_step(model: Transformer, tx: AdamNoam, mesh=None, accum: int = 1,
     ``donate`` the state's tensors are updated in place and returned (the
     counterpart of JAX's buffer donation); without it the given state is
     left as it was.  ``lin`` swaps the linear impl, e.g. the QAT fake-quant
-    ``quant.int4.make_qat_linear_impl``."""
+    ``quant.int4.make_qat_linear_impl``.
+
+    With a ``mesh``, the step of one rank: ``state_tree`` from
+    :func:`shard_state`, ``batch`` this rank's rows (:func:`shard_batch`,
+    dim 1 under ``accum``), ``rng`` from ``parallel.mesh_generator``; the
+    model runs as ``Transformer(model.cfg, mesh)`` and ``lin`` as its
+    tensor-parallel counterpart (``quant.w8a8.shard_linear_impl``).  The
+    metrics are the whole batch's on every rank (module docstring)."""
     if mesh is not None:
-        raise NotImplementedError("mesh-parallel training waits for a port of parallel/")
+        if model.mesh is not mesh:
+            model = Transformer(model.cfg, mesh)
+        lin = shard_linear_impl(lin, mesh)
 
     def grads_of(params, micro, rng):
-        (_, loss, ntok), grads = value_and_grad(model, params, micro, rng, smoothing, lin,
-                                                compute_dtype)
+        (_, loss, ntok), grads = _local_grads(model, params, micro, rng, smoothing, lin,
+                                              compute_dtype)
         return grads, loss, ntok
 
     def step_fn(state: dict, batch: tuple, rng: Optional[torch.Generator]):
@@ -179,11 +232,46 @@ def make_train_step(model: Transformer, tx: AdamNoam, mesh=None, accum: int = 1,
                 loss, ntok = loss + l_i, ntok + n_i
             # the mean of the microbatches' mean losses
             torch._foreach_div_(grads, float(accum))
+        grads, loss = _data_summed(grads, loss, mesh)
         tx.update_(tree_leaves(params), grads, state["opt_state"])
         state["step"].add_(1)
         return state, {"loss": loss, "ntokens": ntok}
 
     return step_fn
+
+
+def _map_state(state_tree: dict, params_fn, other_fn) -> dict:
+    """``params_fn`` on the parameters and Adam's moments, ``other_fn`` on
+    the counts and the step."""
+    adam, sched = state_tree["opt_state"]
+    return {"params": params_fn(state_tree["params"]),
+            "opt_state": (ScaleByAdamState(other_fn(adam.count), params_fn(adam.mu),
+                                           params_fn(adam.nu)),
+                          ScaleByScheduleState(other_fn(sched.count))),
+            "step": other_fn(state_tree["step"])}
+
+
+def shard_state(state_tree: dict, mesh) -> dict:
+    """This rank's train state on the mesh's device: the parameters and
+    Adam's moments sliced by ``param_pspecs`` (``parallel.shard_params``),
+    the counts and the step replicated.  New tensors: the given state is
+    left as it was."""
+    return _map_state(state_tree, lambda tree: tree_map(torch.clone, shard_params(tree, mesh)),
+                      lambda x: x.to(mesh.device, copy=True))
+
+
+def gather_state(state_tree: dict, mesh) -> dict:
+    """The whole train state from this rank's slices (the inverse of
+    :func:`shard_state`), the same on every rank of the model group."""
+    return _map_state(state_tree, lambda tree: gather_params(tree, mesh), lambda x: x)
+
+
+def shard_batch(batch: tuple, mesh, accum: int = 1) -> tuple:
+    """This rank's rows of a whole batch (dim 0, or dim 1 under ``accum``),
+    on the mesh's device: the JAX package's ``P("data")`` or
+    ``P(None, "data")`` placement."""
+    dim = 0 if accum == 1 else 1
+    return tuple(local_rows(torch.as_tensor(a), mesh, dim).to(mesh.device) for a in batch)
 
 
 def batch_to_arrays(b, accum: int = 1, device=None) -> tuple:

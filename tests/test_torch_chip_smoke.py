@@ -73,11 +73,12 @@ def test_kernel_checks(rehearsal):
     assert len(k67) == len(C.K67_SHAPES) - 4
     rows.update(C.check_kernels(CPU, [((4, 7), 64, 96)] + k67, ((4, 7), 64, 96), packed=True))
     # K4/K8 at theirs, all but the four with thousands of rows (the plain
-    # version's product is slow on the CPU), timed at small stand-ins for
-    # the three time shapes
+    # version's product is slow on the CPU) and K8's five of phase
+    # "parallel" with 1,024 columns or 2,304 rows, timed at small stand-ins
+    # for the three time shapes
     small = {key: [s for s in shapes if np.prod(s[0]) <= 1000 and s[2] <= 1000]
              for key, shapes in C.QGEMM_SHAPES.items()}
-    assert [len(C.QGEMM_SHAPES[key]) - len(small[key]) for key in small] == [4, 4]
+    assert [len(C.QGEMM_SHAPES[key]) - len(small[key]) for key in small] == [4, 4 + 5]
     q_times = [((16,), 64, 256), ((16,), 256, 64), ((8,), 64, 64)]
     rows.update(C.check_quant_gemm(CPU, small, q_times))
     for key in ("qgemm", "qgemm4"):

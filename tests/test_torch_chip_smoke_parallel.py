@@ -1,16 +1,21 @@
 """chip_smoke.py's phase "parallel" rehearsed on the CPU at a tiny size
-(IWSLT14-base widths, 1 + 1 layers, 4 slots, sources of 9): the one-device
-reference and a world of one rank in this process (over gloo here, nccl on
-the card), then two spawned ranks over gloo, every gate of
-``check_parallel`` held.  The kernel wrappers are wrapped to count in this
-process (the spawned ranks take the plain versions and count nothing on
-the CPU, so their launch gate runs on the card only).  Then each gate on
-results made wrong on purpose, K5's expected launches, and the ranks'
-cleanup when they raise."""
+(IWSLT14-base widths, 1 + 1 layers, 4 slots, sources of 9; training at 1 +
+1 layers over 4 x 9 pairs): the one-device reference and a world of one
+rank in this process (over gloo here, nccl on the card), then two spawned
+ranks over gloo, every gate of ``check_parallel`` held, the W4A8 logits and
+the TP and DP train steps among them.  The kernel wrappers are wrapped to
+count in this process (the spawned ranks take the plain versions and count
+nothing on the CPU, so their launch gate runs on the card only).  Then each
+gate on results made wrong on purpose, two training runs made wrong on
+purpose in the ranks (a loss normalised by the mean of the data ranks'
+means, dropout generators seeded apart across the model group, the timed
+step's gradient negated under a mesh), K5's and K8's expected launches,
+and the ranks' cleanup when they raise."""
 
 import copy
 import multiprocessing
 
+import numpy as np
 import pytest
 import torch
 from test_torch_chip_smoke import install_rehearsal
@@ -20,6 +25,7 @@ import onnx_transformer_tpu_torch as P
 
 CPU = torch.device("cpu")
 TINY = dict(layers=1, slots=4, requests=6, seq=9, chunk=3, buckets=(3, 6, 9))
+TINY_TRAIN = dict(layers=1, rows=4, seq=9)
 
 
 @pytest.fixture(scope="module")
@@ -28,7 +34,7 @@ def phase_runs():
     with pytest.MonkeyPatch.context() as mp:
         install_rehearsal(mp)
         return C.run_parallel_path(CPU, card="cpu", sizes=TINY, one_backend="gloo",
-                                   timeout_s=300)
+                                   timeout_s=300, train=TINY_TRAIN)
 
 
 def test_parallel_phase_rehearsal(phase_runs):
@@ -47,11 +53,109 @@ def test_parallel_phase_rehearsal(phase_runs):
     assert two["collectives"]["model_sum"][0] > 0 and two["collectives"]["model_max"][0] > 0
 
 
+def test_parallel_train_rehearsal(phase_runs):
+    """Both ranks' TP and DP steps held to one device's (on the CPU the
+    gradients agree to f32 rounding), the collectives of each counted, the
+    bf16 step finite, and the W4A8 logits bit-equal to one device's."""
+    two = phase_runs["two"]
+    assert two["w4a8_logit_diff"] == {rows: [0.0] * C.TP_LOGIT_STEPS for rows in C.TP_LOGIT_ROWS}
+    for rank in two["ranks"]:
+        train = rank["train"]
+        assert train["one"]["ntok"] == train["TP"]["ntok"] == train["DP"]["ntok"] > 0
+        for label in ("TP", "DP"):
+            got = train[label]
+            assert got["loss_rel"] <= 1e-6 and got["grad_share"] <= 1e-5, got
+            assert got["step_loss_rel"] <= 1e-6 and got["step_mu_share"] <= 1e-5, got
+            assert got["step_mu_same"] == 0.0, got
+            assert got["replicated_equal"] and got["gate_flips"] == 0 and got["gates"] > 0
+        # TP: the f/g pair's sums; DP: the token count, then one flat sum
+        assert {"model_sum", "model_copy"} <= set(train["TP"]["collectives"])
+        assert set(train["DP"]["collectives"]) == {"data_sum"}
+        assert train["DP"]["collectives"]["data_sum"][0] == 2
+        assert np.isfinite(train["bf16"]["loss"]) and train["bf16"]["replicated_equal"]
+
+
+def _wrong_train_rank(how: str, train: dict) -> list:
+    """A rank of a training run made wrong on purpose, every rank's
+    ``tp_train`` result gathered: "per-rank mean" normalises each data
+    rank's loss by its own token count times the data ranks (the mean of
+    the per-rank means, not the KL over the whole batch's count); "drift"
+    seeds the dropout generators apart on the ranks of a model group;
+    "step sign" negates the gradient of the timed step under a mesh (the
+    one without taps or inject), leaving ``value_and_grad``'s as it is."""
+    import torch.distributed as dist
+
+    from onnx_transformer_tpu_torch.train import trainer as T
+
+    if how == "per-rank mean":
+        real = T.data_sum
+
+        def per_rank(tensors, mesh):
+            if tensors[0].dtype == torch.int32:
+                return [t * mesh.data for t in tensors]
+            return real(tensors, mesh)
+
+        T.data_sum = per_rank
+    elif how == "step sign":
+        real = T._local_grads
+
+        def negated(model, *args):
+            out, grads = real(model, *args)
+            if model.mesh is not None and len(args) == 6:
+                grads = [-g for g in grads]
+            return out, grads
+
+        T._local_grads = negated
+    else:
+        P.mesh_generator = lambda seed, mesh, device=None: torch.Generator(
+            device=mesh.device).manual_seed(seed + dist.get_rank())
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, C.tp_train(CPU, train))
+    return everyone
+
+
+@pytest.mark.parametrize("how,match", [("per-rank mean", "parallel train DP"),
+                                       ("drift", "parallel train bf16"),
+                                       ("step sign", "parallel train TP rank 0: the timed step")])
+def test_parallel_train_gates_catch_a_wrong_run(how, match):
+    ranks = P.launch(_wrong_train_rank, 2, how, TINY_TRAIN, timeout_s=300)
+    with pytest.raises(AssertionError, match=match):
+        C.check_parallel_train(ranks)
+
+
 def test_tp_expected_k5_launches():
     """Per rank at 6 layers: 36 a prefill (4 column-parallel linears a
     encoder layer, the cross K/V 2 a decoder layer), 30 a decode step."""
     assert C.tp_expected(6, 1, 0)["w8a8"] == 36 and C.tp_expected(6, 0, 1)["w8a8"] == 30
     assert sum(C.tp_expected(6, 3, 7).values()) == 3 * 36 + 7 * 30
+
+
+def test_tp_w4a8_expected_k8_launches():
+    """Per rank at 2 layers and 3 steps, for each of the 2 batches: 12 a
+    prefill (4 column-parallel linears a encoder layer, the cross K/V 2 a
+    decoder layer), 10 a decode step; no other kernel."""
+    want = C.tp_w4a8_expected(2, 3)
+    assert want["qgemm4"] == 2 * (12 + 3 * 10) and sum(want.values()) == want["qgemm4"]
+
+
+def test_parallel_gates_count_the_w4a8_launches_where_counted(phase_runs):
+    """With the two-rank run counted (as on the card), each rank's W4A8
+    logits must launch ``tp_w4a8_expected``'s K8 and nothing else."""
+    ref = phase_runs["reference"]
+
+    def as_on_the_card(r, k8=None):
+        two = r["gloo x2"]
+        for rank in two["ranks"]:
+            rank["launches"] = C.tp_expected(1, two["prefills"], two["steps"])
+            rank["w4a8_launches"] = C.tp_w4a8_expected(1)
+        if k8 is not None:
+            two["ranks"][1]["w4a8_launches"]["qgemm4"] = k8
+
+    C.check_parallel(_broken(phase_runs, as_on_the_card), ref, 1, 9, {"gloo x1", "gloo x2"})
+    for k8 in (0, C.tp_w4a8_expected(1)["qgemm4"] - 1):
+        with pytest.raises(AssertionError, match="rank 1's W4A8 logits launched"):
+            C.check_parallel(_broken(phase_runs, lambda r: as_on_the_card(r, k8)), ref, 1, 9,
+                             {"gloo x1", "gloo x2"})
 
 
 def _broken(phase_runs, how):
@@ -70,6 +174,18 @@ def _broken(phase_runs, how):
     (lambda r: r["gloo x1"].update(n_done=5), "5 requests back of 6"),
     (lambda r: r["gloo x2"]["logit_diff"][C.TP_GATED_ROWS].__setitem__(1, 4.77e-7),
      "logits differ from one device's at 32 rows"),
+    (lambda r: r["gloo x2"]["w4a8_logit_diff"][C.TP_GATED_ROWS].__setitem__(2, 4.77e-7),
+     "W4A8 logits differ from one device's at 32 rows"),
+    (lambda r: r["gloo x2"]["ranks"][1]["train"]["DP"].update(replicated_equal=False),
+     "replicated leaves differ"),
+    (lambda r: r["gloo x2"]["ranks"][0]["train"]["TP"].update(gate_flips=10 ** 6),
+     "ReLU gates flipped"),
+    (lambda r: r["gloo x2"]["ranks"][1]["train"]["DP"].update(step_loss_rel=2e-5),
+     "the timed step's loss"),
+    (lambda r: r["gloo x2"]["ranks"][0]["train"]["TP"].update(step_mu_share=2e-3),
+     "the timed step's loss"),
+    (lambda r: r["gloo x2"]["ranks"][0]["train"]["DP"].update(step_mu_same=1e-5),
+     "unsnapped gradient"),
     (lambda r: r["gloo x1"]["launches"].update(attn=1), "launched"),
     (lambda r: r["gloo x2"].update(warnings=[]), "fused_attn was dropped"),
     (lambda r: r["gloo x2"].update(kv_bytes=r["gloo x2"]["kv_bytes"] * 2), "KV bytes"),

@@ -11,7 +11,8 @@ each CLI module in place of the IWSLT14-base configuration and vocabulary.
   and for "pallas" with the int8 cache and ``fused_attn`` from seeded params
   (a missing checkpoint warns); ``--raw`` keeps the BPE tokens; ``--tp 2``
   on the CPU (two gloo ranks, one process each) prints the lines of
-  ``--tp 0``, and on cards fewer cards than ranks is refused.
+  ``--tp 0`` (for ``--mode int8`` and ``--mode int4``), and on cards fewer
+  cards than ranks is refused.
 """
 
 import numpy as np
@@ -133,6 +134,18 @@ def test_serve_cli_tensor_parallel_prints_the_lines_of_one_device(small_cli, cap
     captured = capsys.readouterr()
     assert captured.out.splitlines() == want and len(want) == len(LINES)
     assert f"# {len(LINES)} sentences" in captured.err and "tp=2" in captured.err
+
+
+def test_serve_cli_int4_tensor_parallel_prints_the_lines_of_one_device(small_cli, capsys):
+    _, _, ckpt, _, _, src_path = small_cli
+    argv = ["--mode", "int4", "--kv-dtype", "int8", "--input", src_path, "--num-slots", "4",
+            "--src-len", "10", "--max-len", "8", "--platform", "cpu", "--ckpt", ckpt]
+    assert serve_cli.main(argv) == 0
+    want = capsys.readouterr().out.splitlines()
+    assert serve_cli.main(argv + ["--tp", "2"]) == 0
+    captured = capsys.readouterr()
+    assert captured.out.splitlines() == want and len(want) == len(LINES)
+    assert "mode=int4" in captured.err and "tp=2" in captured.err
 
 
 def test_serve_cli_nccl_needs_a_card_per_rank(small_cli, capsys):

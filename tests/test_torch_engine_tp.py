@@ -12,7 +12,12 @@ module-scoped fixture:
   one-device engine's tokens, each rank's cache and staging ring holding
   D/2 columns beside whole scales, every rank returning the same requests;
 - ``fused_attn`` and W8A8 ``fused`` warn and fall back (to the one-device
-  engine's tokens without them); ``beam_size=2`` and a W4A8 impl are refused.
+  engine's tokens without them); ``beam_size=2`` is refused;
+- W4A8 (packed int4 payloads, int8 cache) at ``model=4`` and at data=2 x
+  model=2: the one-device engine's tokens, request for request, and at
+  ``model=4`` the JAX engine's over its ``make_mesh(model=4)`` with JAX's
+  ``make_w4a8_linear_impl`` on the same payloads; K6/K7 step aside with a
+  warning.
 
 ``jax`` is imported inside the fixture only: the spawned ranks import this
 module to find their function.
@@ -53,7 +58,12 @@ def _engine(model, params, srcs, lin=P.default_linear, mesh=None, **kw):
     return eng, _tokens(eng, srcs)
 
 
-def _world(np_params, srcs):
+def _payloads4(np_payloads):
+    return {name: {k: torch.from_numpy(np.asarray(v)) for k, v in p.items()}
+            for name, p in np_payloads.items()}
+
+
+def _world(np_params, srcs, np_payloads4):
     """Every case, on each of 4 ranks; rank 0's dict is returned."""
     model = P.Transformer(P.TransformerConfig(31, 29, **DIMS))
     params = P.params_from_jax(np_params, device="cpu")
@@ -89,13 +99,26 @@ def _world(np_params, srcs):
     out["fallback"] = {"equal": tp == one, "fused_attn": eng.fused_attn,
                        "mode": eng.lin.mode, "warnings": [str(w.message) for w in caught]}
     refused = []
-    for kw in ({"beam_size": 2},
-               {"lin": TI.make_w4a8_linear_impl(TI.quantize_model_params_int4(model, sp))}):
-        try:
-            P.TranslationEngine(model, sp, num_slots=4, src_len=10, mesh=mesh, **kw)
-        except ValueError as e:
-            refused.append(str(e))
+    try:
+        P.TranslationEngine(model, sp, num_slots=4, src_len=10, mesh=mesh, beam_size=2)
+    except ValueError as e:
+        refused.append(str(e))
     out["refused"] = refused
+
+    lin4 = TI.make_w4a8_linear_impl(_payloads4(np_payloads4))
+    _, one = _engine(model, params, srcs, lin=lin4, kv_cache_dtype="int8")
+    out["w4a8"] = {"one": one}
+    for label, m in (("tp4", mesh4), ("dp2tp2", mesh)):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eng, tp = _engine(model, params, srcs, lin=lin4, mesh=m, kv_cache_dtype="int8")
+        ranks = [None] * 4
+        dist.all_gather_object(ranks, tp)
+        out["w4a8"][label] = {"tp": tp, "ranks_equal": all(r == tp for r in ranks),
+                              "q8": hasattr(eng.lin, "linear_q8"),
+                              "warnings": [str(w.message) for w in caught],
+                              "packed": tuple(eng.lin.payloads[
+                                  "encoder.layers.0.feed_forward.w_2"]["wq_packed"].shape)}
     return out
 
 
@@ -105,18 +128,28 @@ def world():
 
     from onnx_transformer_tpu.models.transformer import Transformer, TransformerConfig
     from onnx_transformer_tpu.parallel.mesh import make_mesh
+    from onnx_transformer_tpu.quant import int4 as JI
     from onnx_transformer_tpu.serving.engine import TranslationEngine
 
     m = Transformer(TransformerConfig(src_vocab_size=31, tgt_vocab_size=29, dropout=0.0,
                                       **DIMS))
     params = m.init(jax.random.key(5))
     srcs = _srcs()
-    eng = TranslationEngine(m, params, num_slots=4, src_len=srcs.shape[1], max_len=MAX_LEN,
-                            chunk_steps=3, mesh=make_mesh(model=4))
-    ids = [eng.submit(s) for s in srcs]
-    got = {r.req_id: r.out_tokens for r in eng.run()}
-    out = P.launch(_world, 4, jax.tree.map(np.asarray, params), srcs, timeout_s=600)
-    out["jax_tp4"] = [got[i] for i in ids]
+
+    def jax_tokens(**kw):
+        eng = TranslationEngine(m, params, num_slots=4, src_len=srcs.shape[1],
+                                max_len=MAX_LEN, chunk_steps=3, mesh=make_mesh(model=4), **kw)
+        ids = [eng.submit(s) for s in srcs]
+        got = {r.req_id: r.out_tokens for r in eng.run()}
+        return [got[i] for i in ids]
+
+    payloads4 = JI.quantize_model_params_int4(m, params)
+    np_payloads4 = jax.tree.map(np.asarray, payloads4)
+    out = P.launch(_world, 4, jax.tree.map(np.asarray, params), srcs, np_payloads4,
+                   timeout_s=600)
+    out["jax_tp4"] = jax_tokens()
+    out["jax_w4a8_tp4"] = jax_tokens(lin=JI.make_w4a8_linear_impl(payloads4),
+                                     kv_cache_dtype="int8")
     return out
 
 
@@ -140,6 +173,18 @@ def test_fused_attn_and_fused_warn_and_fall_back(world):
     assert any("'fused'" in w for w in fb["warnings"])
 
 
-def test_beam_and_w4a8_are_refused_under_a_mesh(world):
-    beam, w4 = world["refused"]
-    assert "beam_size > 1" in beam and "W8A8" in w4
+def test_beam_is_refused_under_a_mesh(world):
+    (beam,) = world["refused"]
+    assert "beam_size > 1" in beam
+
+
+@pytest.mark.parametrize("label", ["tp4", "dp2tp2"])
+def test_w4a8_engine_over_a_mesh_equals_one_device_and_jax(world, label):
+    w4 = world["w4a8"]
+    got = w4[label]
+    assert got["tp"] == w4["one"] and got["ranks_equal"] and not got["q8"]
+    assert any("K6/K7" in w for w in got["warnings"])
+    # w_2's 64 input rows: 32 packed row pairs split over model
+    assert got["packed"] == ((8, 32) if label == "tp4" else (16, 32))
+    if label == "tp4":
+        assert got["tp"] == world["jax_w4a8_tp4"]

@@ -14,7 +14,11 @@ the same seeded weights (``tests/test_parallel.py``):
   one device;
 - W8A8 ``int8`` and ``pallas`` (K5's plain version on the CPU) at TP=2:
   logits and the int8 cache bit-equal to one device; ``fake`` tokens equal;
-  ``fused`` and ``fused_attn`` warn and fall back.
+  ``fused`` and ``fused_attn`` warn and fall back;
+- W4A8 (packed int4) at TP=2: logits and the int8 cache bit-equal to one
+  device, tokens equal; K6/K7 step aside with a warning, and the
+  column-parallel linears (and only they) call K8 (``quant_w4a8_matmul``,
+  its plain version on the CPU).
 
 ``jax`` is imported inside the fixtures only: the spawned ranks import this
 module to find their function.
@@ -33,6 +37,8 @@ import onnx_transformer_tpu_torch as P
 from onnx_transformer_tpu_torch.ops import layers as TL
 from onnx_transformer_tpu_torch.parallel import mesh as PM
 from onnx_transformer_tpu_torch.parallel import sharding as TS
+from onnx_transformer_tpu_torch.quant import core as TQ
+from onnx_transformer_tpu_torch.quant import int4 as TI
 from onnx_transformer_tpu_torch.quant import w8a8 as TW
 
 DIMS = dict(num_layers=2, d_model=32, d_ff=64, num_heads=4)
@@ -132,6 +138,28 @@ def _world(np_params, src8, src4):
     out["fused"] = {"mode": lf.mode, "q8": hasattr(lf, "linear_q8"),
                     "warnings": [str(w.message) for w in caught],
                     "tokens": torch.equal(ys, out["w8a8_int8_tokens"][1])}
+    l4 = P.make_w4a8_linear_impl(TI.quantize_model_params_int4(m1, sp))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        lt4 = P.shard_linear_impl(l4, mesh22)
+    k8_widths = []
+    k8 = TI.K.quant_w4a8_matmul
+
+    def counted_k8(x, wp, sw, b=None):
+        k8_widths.append(wp.shape[1])
+        return k8(x, wp, sw, b)
+
+    TI.K.quant_w4a8_matmul = counted_k8
+    try:
+        out["w4a8"] = _w8a8_steps(m1, m22, sp, spt, l4, lt4, s8, sm8)
+    finally:
+        TI.K.quant_w4a8_matmul = k8
+    out["w4a8"]["warnings"] = [str(w.message) for w in caught]
+    out["w4a8"]["k8_widths"] = sorted(set(k8_widths))
+    out["w4a8"]["k8_calls"] = len(k8_widths)
+    out["w4a8_tokens"] = (
+        P.greedy_decode(m22, spt, s8, sm8, MAX_LEN, lin=lt4, kv_cache_dtype="int8"),
+        P.greedy_decode(m1, sp, s8, sm8, MAX_LEN, lin=l4, kv_cache_dtype="int8"))
     out["sum_calls"] = P.parallel.model_sum.calls
     return out
 
@@ -219,6 +247,21 @@ def test_w8a8_tp2_bit_equal_to_one_device(world, mode):
     assert torch.equal(tp, one)
 
 
+def test_w4a8_tp2_logits_and_cache_bit_equal_to_one_device(world):
+    got = world["w4a8"]
+    assert got["memory"] and all(got["logits"]), got
+    assert got["cache"] and got["scales"] and got["cache_width"] == 16
+    assert any("K6/K7" in w for w in got["warnings"])
+    # K8 per rank: the encoder's q/k/v and w_1 (4 a layer), the cross K/V
+    # (2 a decoder layer), each of 4 steps' self q/k/v, cross q and w_1 (5
+    # a layer); N the rank's columns (d_model / 2, d_ff / 2)
+    n = DIMS["num_layers"]
+    assert got["k8_calls"] == 4 * n + 2 * n + 5 * n * 4
+    assert got["k8_widths"] == [DIMS["d_model"] // 2, DIMS["d_ff"] // 2]
+    tp, one = world["w4a8_tokens"]
+    assert torch.equal(tp, one)
+
+
 def test_w8a8_fake_tp2_tokens_equal(world):
     tp, one = world["w8a8_fake_tokens"]
     assert torch.equal(tp, one)
@@ -260,7 +303,29 @@ def test_shard_payloads_slices_by_kind():
                                         "generator.proj")] == ["column", "row", "column",
                                                                "replicated"]
     with pytest.raises(ValueError, match="only W8A8 payloads"):
-        P.shard_payloads({col: {"wq_packed": pay[col]["wq"], "sw": 0, "b": 0}}, mesh)
+        P.shard_payloads({col: {"wq": pay[col]["wq"], "sw": 0}}, mesh)
+
+
+def test_shard_payloads_slices_packed_int4():
+    """W4A8 payloads: column-parallel packed columns, row-parallel whole
+    packed row pairs (rank 1 of 2 holds unpacked rows 32-63 of w_2's 64),
+    the rest whole; an odd K / model is refused."""
+    cfg = P.TransformerConfig(31, 29, **DIMS)
+    model = P.Transformer(cfg)
+    pay = TI.quantize_model_params_int4(model, model.init(seed=2, device="cpu"))
+    got = P.shard_payloads(pay, _FakeMesh(2, 1))
+    col, row = "decoder.layers.1.src_attn.linears.2", "encoder.layers.0.feed_forward.w_2"
+    assert torch.equal(got[col]["wq_packed"], pay[col]["wq_packed"][:, 16:])
+    assert torch.equal(got[col]["sw"], pay[col]["sw"][16:])
+    assert torch.equal(got[col]["b"], pay[col]["b"][16:])
+    assert torch.equal(got[row]["wq_packed"], pay[row]["wq_packed"][16:])
+    assert torch.equal(TQ.unpack_int4(got[row]["wq_packed"]),
+                       TQ.unpack_int4(pay[row]["wq_packed"])[32:])
+    assert torch.equal(got[row]["sw"], pay[row]["sw"]) and torch.equal(got[row]["b"],
+                                                                       pay[row]["b"])
+    odd = "encoder.layers.0.self_attn.linears.3"     # K = 32: 16 packed rows
+    with pytest.raises(ValueError, match="K / model must be even"):
+        P.shard_payloads({odd: pay[odd]}, _FakeMesh(32, 0))
 
 
 def test_tp_needs_heads_and_d_ff_divisible():

@@ -209,7 +209,7 @@ def test_bf16_mixed_precision_matches_fp32_trajectory():
     assert l16[-1] < l16[0]
 
 
-def test_donate_updates_in_place_and_mesh_waits_for_parallel():
+def test_donate_updates_in_place():
     _, tx, state, batch, _ = _tiny()
     model = _tiny()[0]
     arrs = T.batch_to_arrays(batch, device="cpu")
@@ -220,8 +220,6 @@ def test_donate_updates_in_place_and_mesh_waits_for_parallel():
     donated, _ = T.make_train_step(model, tx)(tree, arrs, None)
     assert donated["params"] is tree["params"]
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(donated), tree_leaves(kept)))
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        T.make_train_step(model, tx, mesh=object())
 
 
 def test_batch_to_arrays_folds_microbatches():
