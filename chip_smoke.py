@@ -107,7 +107,8 @@ Phases, each printed on its own line with its seconds:
               second are printed; the first serial decode is profiled as
               above.
 8. engine     the continuous-batching ``TranslationEngine`` at the same widths
-              and weights, the EOS logit raised so that outputs end at spread
+              and weights' seed, the depth cut to ``SHALLOW_LAYERS`` (1 + 1)
+              layers, the EOS logit raised so that outputs end at spread
               lengths, at bench.py's engine configurations (512 slots,
               src_len = max_len = 72, chunk 12, int8 cache, buckets 24/48/72)
               over seeded sources of IWSLT14's length mix: E1 the fast chunk
@@ -115,9 +116,10 @@ Phases, each printed on its own line with its seconds:
               ``fused_attn``, 1,024 requests), E3 beam 4 ("fused", 256
               requests).  Gates: every request back once with at most 71
               tokens; the launches that the run's prefill and chunk dispatches
-              give (K1 18 / K2 12 per prefill of 8,192 tokens or more in E1
-              and E3, none in their chunks; K5 48 per prefill and 48 per step,
-              K3 12 per step in E2); >= 95 % per-token agreement with the
+              give (K1 3 / K2 2 a layer per prefill of 8,192 tokens or more
+              in E1 and E3, none in their chunks; K5 8 a layer per prefill and
+              per step, K3 2 a layer per step in E2); >= 95 % per-token
+              agreement with the
               lockstep decode of the same requests under the same impl, and
               a least share of requests identical to it for each run.  Useful
               tokens/s, requests/s, occupancy, starved and gated slots, of a
@@ -168,10 +170,24 @@ Phases, each printed on its own line with its seconds:
               gradient; the replicated leaves bit-equal on every rank after
               the step; one bf16 recipe step
               (dropout 0.3, ``mesh_generator``) finite with the replicated
-              leaves equal again.  Printed: ms a step of each mesh and of
-              one device, the collectives of a step and their host
-              seconds, ``max_memory_allocated`` a rank.  Not a multi-card
-              number.
+              leaves equal again; then one pipelined step (``pp_train``:
+              GPipe over ``make_pipeline_mesh(data=1, pipe=2, model=1)``,
+              3 + 3 layers a stage, ``PP_MICRO`` microbatches) against one
+              device's: loss within rtol 1e-5, the gradients gathered over
+              ``pipe`` within ``TRAIN_GRAD_LIMIT`` of the largest with each
+              ReLU gate snapped to one device's, at most
+              ``TP_GATE_FLIP_LIMIT`` of the gates flipped, the timed step's
+              loss and Adam first moment as above, the replicated leaves
+              bit-equal on both ranks, K1-K8 never launched; then the fault
+              campaign over ``make_mesh(data=2, model=1)``
+              (``campaign_over_data``: ``SHALLOW_LAYERS`` layers, two
+              specs on ``PP_CAMPAIGN``'s 8 sources of 72, max_len 72): the
+              rows, golden and faulty tokens of each rank's 4 sources equal
+              to one device's campaign on those 4, no K1-K8 launch.  Printed: ms a
+              step of each mesh and of one device, the collectives of a
+              step and their host seconds (the pipe's sends and receives
+              too), ``max_memory_allocated`` a rank, each campaign's
+              seconds.  Not a multi-card number.
 10. train     training at the same widths, weights from a seed, over
               synthetic BPE-like pairs of the vocabularies' own tokens at the
               IWSLT14 length mix: one f32, dropout-0 loss and gradient at
@@ -243,7 +259,7 @@ TOTAL_BUDGET_S = 300
 SHALLOW_LAYERS = 1
 PHASE_LIMIT_S = {"device": 60, "build": 120, "kernels": 120, "main path": 180,
                  "serving path": 180, "int4 path": 120, "fault campaign": 60,
-                 "engine": 60, "parallel": 60, "train": 60, "export": 60, "reference": 60}
+                 "engine": 60, "parallel": 75, "train": 60, "export": 60, "reference": 60}
 # H100 SXM peaks at the full 700 W power limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -1475,16 +1491,21 @@ ENGINE_RUNS = (("E1 fast", "fused", {}, "fast", 0.90),
 # added to the generator's EOS bias for the engine phase: the seeded model
 # emits no EOS otherwise, and every request would run to the length cap;
 # with it, outputs end at lengths spread from 0 to the cap, so slots die
-# at staggered steps, mid-chunk, and are refilled while others run
+# at staggered steps, mid-chunk, and are refilled while others run.  1.4 at
+# 6 + 6 layers (quartiles 3 / 9 / 34 tokens, 11 % empty, 25 % at the cap on
+# the card); the engine phase's 1 + 1 layers take ``SHALLOW_EOS_BIAS``, 1.0
+# (quartiles 9 / 12 / 21, 10 % at the cap, E1's sources), since at 1.4
+# 64 % of their outputs are empty (PERF.md §6)
 ENGINE_EOS_BIAS = 1.4
+SHALLOW_EOS_BIAS = 1.0
 
 
-def eos_raised(params: dict, cfg) -> dict:
+def eos_raised(params: dict, cfg, bias: float = ENGINE_EOS_BIAS) -> dict:
     """A copy of ``params`` with the generator's EOS logit raised by
-    ``ENGINE_EOS_BIAS``; ``params`` stays as it is."""
+    ``bias``; ``params`` stays as it is."""
     gen = dict(params["generator"])
     gen["b"] = gen["b"].clone()
-    gen["b"][cfg.eos_id] += ENGINE_EOS_BIAS
+    gen["b"][cfg.eos_id] += bias
     return {**params, "generator": gen}
 
 
@@ -1520,7 +1541,8 @@ def run_engine_path(device, base: dict, card: str = "", slots: int = 512, seq: i
                     requests: tuple = (1024, 1024, 256)) -> dict:
     """The continuous-batching engine at bench.py's engine configurations
     (``ENGINE_RUNS``; ``bench.py:143-148`` and ``426-429``), the model's EOS
-    logit raised by ``ENGINE_EOS_BIAS``, over seeded sources of IWSLT14's length
+    logit raised by ``ENGINE_EOS_BIAS`` (``SHALLOW_EOS_BIAS`` at
+    ``SHALLOW_LAYERS``), over seeded sources of IWSLT14's length
     distribution: each run's requests submitted, the kernel counters set to
     0, ``run()`` timed from a cold engine (its state allocated inside the
     time; two waves of requests, so the drain tail is a large share), its
@@ -1540,7 +1562,8 @@ def run_engine_path(device, base: dict, card: str = "", slots: int = 512, seq: i
     model = base["model"]
     cfg = model.cfg
     n = cfg.num_layers
-    sp = eos_raised(base["params"], cfg)
+    sp = eos_raised(base["params"], cfg,
+                    SHALLOW_EOS_BIAS if n == SHALLOW_LAYERS else ENGINE_EOS_BIAS)
     counters = kernel_counters()
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     results = {}
@@ -1900,7 +1923,128 @@ def local_part(key: str, value, mesh):
     return value
 
 
-def tp_train(device, train: dict, card: str = "") -> dict:
+# phase "parallel"'s pipelined train step (GPipe): the model of ``tp_train``
+# over ``make_pipeline_mesh(data=1, pipe=2, model=1)`` (its layers split
+# into two stages of ``TP_TRAIN["layers"] / 2``), ``PP_MICRO`` microbatches
+PP_MICRO = 2
+
+
+def pipeline_replicated(params):
+    """The leaves of a stage's params that every rank holds whole (the
+    embeddings, the final norms, the generator), flat."""
+    import torch
+
+    from onnx_transformer_tpu_torch.params import tree_leaves
+
+    whole = [params["src_embed"], params["tgt_embed"], params["encoder"]["ln"],
+             params["decoder"]["ln"], params["generator"]]
+    return torch.cat([t.reshape(-1) for t in tree_leaves(whole)])
+
+
+def relu_gate_lin(ref_taps: dict, mesh, layers: int, snap: bool):
+    """The plain linear over a pipeline mesh, with each pipelined FFN
+    ``w_1`` output held to one device's tap of the same layer and rows:
+    its ReLU gates that differ are counted and, with ``snap``, the output
+    is snapped to one device's (the gradient passes through the snap).
+    The pipelined layers all run under one name, so the calls are matched
+    to layers and microbatches in the stage's order: microbatch by
+    microbatch, its layers in order.  Returns (lin, counts)."""
+    import onnx_transformer_tpu_torch as P
+
+    n_local = layers // mesh.pipe
+    counts = {"flips": 0, "gates": 0}
+
+    def site(side):
+        order = iter([(mesh.pipe_rank * n_local + i, m) for m in range(PP_MICRO)
+                      for i in range(n_local)])
+
+        def fn(v):
+            layer, m = next(order)
+            want = P.parallel.local_rows(ref_taps[f"{side}.layers.{layer}.feed_forward.w_1.out"],
+                                         mesh)
+            want = want.chunk(PP_MICRO)[m]
+            counts["flips"] += int(((v > 0) != (want > 0)).sum())
+            counts["gates"] += want.numel()
+            return v + (want - v).detach() if snap else v
+        return fn
+
+    inject = {f"{side}.layers.pp.feed_forward.w_1.out": site(side)
+              for side in ("encoder", "decoder")}
+
+    def lin(name, x, w, b, taps=None, _inject=None):
+        return P.default_linear(name, x, w, b, taps, inject)
+
+    lin.mesh = mesh
+    return lin, counts
+
+
+def pp_train(model, tx, params, arrs, ref_g, ref_taps, one_mu, one: dict, timed,
+             layers: int, device) -> dict:
+    """Phase "parallel"'s pipelined training on one rank of the two: the
+    stacked model split into two stages (``make_pipeline_mesh(data=1,
+    pipe=2, model=1)``, ``PP_MICRO`` microbatches); the loss and gradients
+    (``pipeline_value_and_grad``), gathered over ``pipe``, against one
+    device's ``ref_g``, the ReLU gates counted and then snapped to one
+    device's (``relu_gate_lin``); one timed ``make_pipeline_train_step``
+    step with its collectives, peak memory and K1-K8 launches (none
+    allowed), its loss against one device's step's, its Adam first moment
+    against one device's step's ``one_mu`` and ``(1 - b1)`` times its own
+    unsnapped gradient; whether the replicated leaves equal rank 0's.
+    ``one`` holds one device's loss and step loss."""
+    import torch
+
+    import onnx_transformer_tpu_torch as P
+    from onnx_transformer_tpu_torch.parallel import collectives as PC
+    from onnx_transformer_tpu_torch.parallel import pipeline as PP
+    from onnx_transformer_tpu_torch.params import tree_leaves, tree_unflatten
+
+    mesh = PP.make_pipeline_mesh(data=1, pipe=2, model=1, device=device)
+    stacked = PP.stack_pipeline_params(params)
+    state = PP.shard_pipeline_state({"params": stacked, "opt_state": tx.init(stacked),
+                                     "step": torch.zeros((), dtype=torch.int32,
+                                                         device=device)}, mesh)
+    rows = P.shard_batch(arrs, mesh)
+
+    def whole(local):
+        """Gradients or moments of this stage, gathered over ``pipe``, in
+        one device's leaf order."""
+        return tree_leaves(PP.unstack_pipeline_params(PP.gather_pipeline_params(
+            tree_unflatten(state["params"], list(local)), mesh)))
+
+    gmax = max(g.abs().max().item() for g in ref_g)
+    lin, counts = relu_gate_lin(ref_taps, mesh, layers, snap=False)
+    (_, loss, ntok), raw_g = PP.pipeline_value_and_grad(model, state["params"], rows,
+                                                        mesh=mesh, n_micro=PP_MICRO, lin=lin)
+    raw = max((a - b).abs().max().item() for a, b in zip(whole(raw_g), ref_g))
+    lin, _ = relu_gate_lin(ref_taps, mesh, layers, snap=True)
+    _, g = PP.pipeline_value_and_grad(model, state["params"], rows, mesh=mesh,
+                                      n_micro=PP_MICRO, lin=lin)
+    diff = max((a - b).abs().max().item() for a, b in zip(whole(g), ref_g))
+    del g
+    step = PP.make_pipeline_train_step(model, tx, mesh, n_micro=PP_MICRO)
+    kernels = kernel_counters()
+    for c in kernels.values():
+        c.launches = 0
+    (state, m), ms, coll, mem = timed(lambda: step(state, rows, None))
+    launches = {k: c.launches for k, c in kernels.items() if c.launches}
+    sends, recvs = PC.pipe_exchange.sends, PC.pipe_exchange.recvs
+    mu = tree_leaves(state["opt_state"][0].mu)
+    mu_max = max(x.abs().max().item() for x in tree_leaves(one_mu))
+    mu_diff = max((a - b).abs().max().item() for a, b in zip(whole(mu), tree_leaves(one_mu)))
+    mu_same = max((a - (1 - tx.B1) * b).abs().max().item() for a, b in zip(mu, raw_g))
+    step_loss = float(m["loss"])
+    return {"loss": float(loss), "ntok": int(ntok), "step_loss": step_loss,
+            "loss_rel": abs(float(loss) - one["loss"]) / one["loss"],
+            "step_loss_rel": abs(step_loss - one["step_loss"]) / one["step_loss"],
+            "step_mu_share": mu_diff / mu_max, "step_mu_same": mu_same / mu_max,
+            "grad_share": diff / gmax, "grad_share_unsnapped": raw / gmax,
+            "gate_flips": counts["flips"], "gates": counts["gates"], "ms": ms,
+            "collectives": coll, "pipe_sends": sends, "pipe_recvs": recvs,
+            "max_memory": mem, "launches": launches, "n_micro": PP_MICRO,
+            "replicated_equal": equal_to_rank0(pipeline_replicated(state["params"]))}
+
+
+def tp_train(device, train: dict, card: str = "") -> tuple[dict, dict]:
     """Phase "parallel"'s training on one rank of the world: one device's
     loss, gradients and step on this rank's card as the reference, then for
     each mesh of ``TP_TRAIN_MESHES`` the tensor- or data-parallel loss and
@@ -1920,7 +2064,12 @@ def tp_train(device, train: dict, card: str = "") -> dict:
     reference's with each ``w_1`` output snapped to the reference's
     (through ``inject``; the gradient passes through the snap), the gates
     that flip without the snap are counted, and the gradients as they come
-    are printed."""
+    are printed.
+
+    Returns (the results, the reference): one device's model, optimizer,
+    parameters, batch, gradients, ``w_1`` taps, step moment and results,
+    the ``timed`` helper, the depth and the device, which ``pp_train``
+    takes as keyword arguments."""
     import torch
 
     import onnx_transformer_tpu_torch as P
@@ -1946,8 +2095,7 @@ def tp_train(device, train: dict, card: str = "") -> dict:
 
     def timed(fn):
         """fn() with the collectives' counts and the peak memory from 0."""
-        for c in PC.COLLECTIVES:
-            c.calls, c.seconds = 0, 0.0
+        PC.reset_counts()
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         sync()
@@ -2013,7 +2161,9 @@ def tp_train(device, train: dict, card: str = "") -> dict:
     out["bf16"] = {"mesh": label, "loss": float(m["loss"]), "ms": ms, "collectives": coll,
                    "replicated_equal": equal_to_rank0(replicated_leaves(state["params"],
                                                                         mesh))}
-    return out
+    return out, dict(model=model, tx=tx, params=params, arrs=arrs, ref_g=ref_g,
+                     ref_taps=ref_taps, one_mu=one_mu, one=out["one"], timed=timed,
+                     layers=train["layers"], device=device)
 
 
 def check_parallel_train(ranks: list) -> None:
@@ -2027,10 +2177,15 @@ def check_parallel_train(ranks: list) -> None:
     ``TP_STEP_SAME_LIMIT`` of ``(1 - b1)`` times the unsnapped gradient
     (shares of the largest); the leaves that every rank holds
     whole bit-equal to rank 0's after each step, the bf16 step's loss
-    finite."""
+    finite.  The pipelined step ("PP", ``pp_train``), where it ran, is held
+    the same way, its gradients gathered over ``pipe``, and must launch
+    none of K1-K8."""
     for k, r in enumerate(ranks):
-        for label, _, _ in TP_TRAIN_MESHES:
+        for label in [m[0] for m in TP_TRAIN_MESHES] + ["PP"] * ("PP" in r):
             got = r[label]
+            if got.get("launches"):
+                raise AssertionError(f"parallel train {label} rank {k}: the step launched "
+                                     f"{got['launches']}; training launches no kernel")
             if got["gate_flips"] > TP_GATE_FLIP_LIMIT * got["gates"]:
                 raise AssertionError(f"parallel train {label} rank {k}: {got['gate_flips']} of "
                                      f"{got['gates']} ReLU gates flipped against one device's "
@@ -2060,14 +2215,112 @@ def check_parallel_train(ranks: list) -> None:
                                  f"replicated leaves equal to rank 0's {bf16['replicated_equal']}")
 
 
+# phase "parallel"'s fault campaign over ``make_mesh(data=2, model=1)``: the
+# fault campaign phase's model (``SHALLOW_LAYERS`` layers, W8A8 payloads),
+# ``rows`` sources of ``seq`` tokens, ``max_len``; two specs, an encoder
+# WEIGHT fault (every row) and a decoder INPUT fault at the last row's 18th
+# feature (the second data rank's rows: a fault addresses the whole batch).
+# Its reference is one device's campaign on each data rank's own rows, at
+# the rank's shapes: the card's batched attention products (cuBLAS picks
+# their kernel by the batch count) round otherwise at 4 rows than at 8
+# (PERF.md §6)
+PP_CAMPAIGN = dict(rows=8, seq=72, max_len=72)
+
+
+def campaign_specs(rows: int, d_model: int, part: int = 0, parts: int = 1) -> list:
+    """The campaign's two specs over ``rows`` sources as one device sees
+    them on data rank ``part``'s ``rows / parts`` sources: the INPUT fault
+    (one token row of the decoder's ``w_1`` input at step 3) at that rank's
+    row, None where the rank does not hold it."""
+    from onnx_transformer_tpu_torch.inject import campaign as FC
+
+    local = rows // parts
+    last = rows - 1 - part * local
+    return [FC.FaultSpec("encoder.layers.0.self_attn.linears.0", "WEIGHT", bit=6, element=5),
+            FC.FaultSpec("decoder.layers.0.feed_forward.w_1", "INPUT", bit=6,
+                         element=last * d_model + 17, inject_step=3)
+            if 0 <= last < local else None]
+
+
+def campaign_over_data(device, sizes: dict) -> dict:
+    """Phase "parallel"'s campaign on one rank: ``run_campaign`` over
+    ``make_mesh(data=2, model=1)`` (the sources split over ``data``, the
+    model replicated), and on one device over this rank's rows only, with
+    the specs it holds there (``campaign_specs``); whether the mesh's
+    golden and faulty tokens and rows for this rank's sources equal one
+    device's (a spec the rank does not hold leaves them golden), the
+    seconds of each, and the K1-K8 launches of the mesh's run (none: inject
+    routes around every kernel)."""
+    import torch
+
+    import onnx_transformer_tpu_torch as P
+    from onnx_transformer_tpu_torch.inject import campaign as FC
+
+    mesh = P.make_mesh(data=2, model=1, device=device)
+    rows = sizes["rows"]
+    local = rows // mesh.data
+    part = slice(mesh.data_rank * local, (mesh.data_rank + 1) * local)
+    base = build_iwslt(device, SHALLOW_LAYERS, batch=rows, src_len=sizes["seq"])
+    model = base["model"]
+    whole = campaign_specs(rows, model.cfg.d_model)
+    mine = campaign_specs(rows, model.cfg.d_model, mesh.data_rank, mesh.data)
+    refs = [["the", "of"]] * rows
+    vt = P.load_iwslt14_vocab()[1]
+    args = (model, base["params"], base["payloads"])
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    two, two_s, launches = counted_run(lambda: FC.run_campaign(
+        *args, whole, base["src"], base["src_mask"], refs, vt, max_len=sizes["max_len"],
+        fanout=2, mesh=mesh), sync)
+    one, one_s, _ = counted_run(lambda: FC.run_campaign(
+        *args, [s for s in mine if s is not None], base["src"][part], base["src_mask"][part],
+        refs[part], vt, max_len=sizes["max_len"], fanout=2), sync)
+    held, held_rows = iter(one.faulty), iter(one.rows)
+    golden_bleus = [r["golden_bleu"] for r in one.rows[:local]]
+    want_faulty, want_rows = [], []
+    for spec, mine_j in zip(whole, mine):
+        if mine_j is None:
+            want_faulty.append(one.golden)
+            want_rows += [{"layer": spec.target, "golden_bleu": g, "faulty_bleu": g,
+                           "bit": spec.bit, "fault_model": spec.fault_model,
+                           "tokens_changed": 0, "ref_name": spec.ref_name}
+                          for g in golden_bleus]
+        else:
+            want_faulty.append(next(held))
+            want_rows += [next(held_rows) for _ in range(local)]
+    got_rows = [r for j in range(len(whole))
+                for r in two.rows[j * rows + part.start:j * rows + part.stop]]
+    return {"rows": len(two.rows), "sources": rows, "rows_equal": got_rows == want_rows,
+            "golden_equal": bool(np.array_equal(two.golden[part], one.golden)),
+            "faulty_equal": len(two.faulty) == len(whole)
+            and all(np.array_equal(a[part], b) for a, b in zip(two.faulty, want_faulty)),
+            "tokens_changed": [r["tokens_changed"] for r in two.rows],
+            "seconds": one_s, "mesh_seconds": two_s, "launches": launches}
+
+
+def check_parallel_campaign(ranks: list) -> None:
+    """Each rank's campaign over ``data``: the rows, golden and faulty
+    tokens of its sources one device's on them, 2 specs x the sources'
+    rows, no K1-K8 launch."""
+    for k, c in enumerate(ranks):
+        if not (c["rows_equal"] and c["golden_equal"] and c["faulty_equal"]):
+            raise AssertionError(f"parallel campaign rank {k}: over data=2 the rows "
+                                 f"({c['rows_equal']}), golden ({c['golden_equal']}) or faulty "
+                                 f"tokens ({c['faulty_equal']}) of its sources differ from one "
+                                 "device's on them")
+        if c["rows"] != 2 * c["sources"] or c["launches"]:
+            raise AssertionError(f"parallel campaign rank {k}: {c['rows']} rows, launches "
+                                 f"{c['launches']}")
+
+
 def parallel_rank(sizes: dict) -> dict:
     """One rank of phase "parallel", run by ``parallel.launch``: the
     IWSLT14-base model from the seed at ``sizes["layers"]`` layers on this
     rank's card (rank % cards; two ranks share one) or the CPU, the mesh
     ``make_mesh(model=world)``, the logit checks (W8A8 "pallas" and W4A8),
     the engine run, then the training of ``tp_train`` at
-    ``sizes["train"]``.  Every rank's tokens, logits and training results
-    are gathered; rank 0 returns them."""
+    ``sizes["train"]`` (the pipelined step among it) and the campaign over
+    ``data`` at ``sizes["campaign"]``.  Every rank's tokens, logits,
+    training and campaign results are gathered; rank 0 returns them."""
     import torch
     import torch.distributed as dist
 
@@ -2086,16 +2339,24 @@ def parallel_rank(sizes: dict) -> dict:
                         card)
     del base
     t0 = time.perf_counter()
-    train = tp_train(device, sizes["train"], card)
+    train, ref = tp_train(device, sizes["train"], card)
+    train["PP"] = pp_train(**ref)
+    del ref
     train["seconds"] = time.perf_counter() - t0
     print(f"parallel train rank {rank} (IWSLT14-base at {sizes['train']['layers']} + "
           f"{sizes['train']['layers']} layers, B={sizes['train']['rows']} x "
           f"{sizes['train']['seq']}, f32, dropout 0, probability rounding off; not a "
           f"multi-card number): {train} on {card}", flush=True)
+    campaign = campaign_over_data(device, sizes["campaign"])
+    print(f"parallel campaign rank {rank} over make_mesh(data=2, model=1) "
+          f"({SHALLOW_LAYERS} + {SHALLOW_LAYERS} layers, B={sizes['campaign']['rows']} x "
+          f"{sizes['campaign']['seq']}, max_len {sizes['campaign']['max_len']}): {campaign} on "
+          f"{card}", flush=True)
     everyone = [None] * dist.get_world_size()
     dist.all_gather_object(everyone, {"outs": res["outs"], "launches": res["launches"],
                                       "logits": logits["logits"],
                                       "max_memory": res["max_memory"], "train": train,
+                                      "campaign": campaign,
                                       "w4a8_logits": w4["logits"],
                                       "w4a8_launches": w4["launches"]})
     res["ranks"] = everyone
@@ -2157,7 +2418,11 @@ def check_parallel(runs: dict, ref: dict, n: int, seq: int, counted: set) -> Non
                                              f"launched {other['w4a8_launches']}, expected "
                                              f"{expect}")
         if "train" in ranks[0]:
+            if not all("PP" in other["train"] for other in ranks):
+                raise AssertionError(f"parallel {label}: a rank ran no pipelined train step")
             check_parallel_train([other["train"] for other in ranks])
+        if "campaign" in ranks[0]:
+            check_parallel_campaign([other["campaign"] for other in ranks])
         same = [a == b for a, b in zip(r["outs"], want)]
         if not all(same):
             raise AssertionError(f"parallel {label}: {len(same) - sum(same)} of {len(same)} "
@@ -2177,15 +2442,16 @@ def check_parallel(runs: dict, ref: dict, n: int, seq: int, counted: set) -> Non
 
 
 def run_parallel_path(device, card: str = "", sizes: dict = TP_ENGINE,
-                      one_backend: str = "nccl", timeout_s: float = 50.0,
-                      train: dict = TP_TRAIN) -> dict:
+                      one_backend: str = "nccl", timeout_s: float = 65.0,
+                      train: dict = TP_TRAIN, campaign: dict = PP_CAMPAIGN) -> dict:
     """Phase "parallel": the model from the seed at ``sizes["layers"]``
     layers, the one-device reference engine (``fused_attn`` off) and a world
     of one rank over ``one_backend`` with ``make_mesh(model=1)`` in this
     process, then two ranks on the same card (``parallel.launch``, gloo,
-    ``make_mesh(data=1, model=2)``), each building the model from the seed
-    and then training it at ``train``'s sizes (``tp_train``); the gates of
-    ``check_parallel``."""
+    ``make_mesh(data=1, model=2)``), each building the model from the seed,
+    then training it at ``train``'s sizes (``tp_train``, the pipelined step
+    among it) and running the campaign over ``data`` at ``campaign``'s
+    (``campaign_over_data``); the gates of ``check_parallel``."""
     import tempfile
 
     import torch.distributed as dist
@@ -2206,6 +2472,7 @@ def run_parallel_path(device, card: str = "", sizes: dict = TP_ENGINE,
             dist.destroy_process_group()
     one["model"] = 1
     two = P.launch(parallel_rank, 2, {**sizes, "device": device.type, "train": train,
+                                      "campaign": campaign,
                                       "label": "two ranks sharing one card through gloo"},
                    backend="gloo", timeout_s=timeout_s)
     two["model"] = 2
@@ -2213,6 +2480,7 @@ def run_parallel_path(device, card: str = "", sizes: dict = TP_ENGINE,
     counted = set(runs) if device.type == "cuda" else {f"{one_backend} x1"}
     check_parallel(runs, ref, n, sizes["seq"], counted)
     train = [r["train"] for r in two["ranks"]]
+    camp = [r["campaign"] for r in two["ranks"]]
     k8 = sum(r["w4a8_launches"]["qgemm4"] for r in two["ranks"])
     print(f"parallel: two ranks sharing one {card} through gloo (not a multi-card number): "
           f"{two['useful_per_s']:.3f} useful tokens/s against one device's "
@@ -2233,7 +2501,22 @@ def run_parallel_path(device, card: str = "", sizes: dict = TP_ENGINE,
                       f"{[t[label]['max_memory'] for t in train]})"
                       for label, _, _ in TP_TRAIN_MESHES)
           + f", bf16 {[t['bf16']['ms'] for t in train]} (loss "
-          f"{[t['bf16']['loss'] for t in train]}); every gate held", flush=True)
+          f"{[t['bf16']['loss'] for t in train]}); pipelined (data 1, pipe 2, model 1, "
+          f"{PP_MICRO} microbatches) {[t['PP']['ms'] for t in train]} (loss rel "
+          f"{[t['PP']['loss_rel'] for t in train]}, gradients gathered over pipe "
+          f"{[t['PP']['grad_share'] for t in train]} of the largest snapped, "
+          f"{[t['PP']['grad_share_unsnapped'] for t in train]} as they come, ReLU gates "
+          f"flipped {[t['PP']['gate_flips'] for t in train]} of "
+          f"{train[0]['PP']['gates']}, step loss rel "
+          f"{[t['PP']['step_loss_rel'] for t in train]}, step first moment "
+          f"{[t['PP']['step_mu_share'] for t in train]} of the largest, "
+          f"{[t['PP']['step_mu_same'] for t in train]} from the gradient's, collectives "
+          f"{[t['PP']['collectives'] for t in train]}, sends/receives a rank "
+          f"{[(t['PP']['pipe_sends'], t['PP']['pipe_recvs']) for t in train]}, "
+          f"max_memory_allocated {[t['PP']['max_memory'] for t in train]}, K1-K8 launches "
+          f"{[t['PP']['launches'] for t in train]}); campaign over data=2 rows equal "
+          f"{[c['rows_equal'] for c in camp]}, s one device / mesh "
+          f"{[(c['seconds'], c['mesh_seconds']) for c in camp]}; every gate held", flush=True)
     return {"reference": ref, "one": one, "two": two, "launches": {"qgemm4": k8}}
 
 
@@ -2928,7 +3211,7 @@ def main() -> int:
         run_fault_campaign(device, shallow, card=card)
 
     with phase("engine"):
-        run_engine_path(device, base, card=card)
+        run_engine_path(device, shallow, card=card)
 
     with phase("parallel"):
         parallel_res = run_parallel_path(device, card=card)

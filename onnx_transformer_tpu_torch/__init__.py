@@ -28,7 +28,11 @@ inserts in the JAX package written out; the model's tensor-parallel view
 KV-cached decodes and the engine (``mesh=``, and the serve command line's
 ``--tp``) run over it, K5 in the column-parallel W8A8 linears; so does
 training (``make_train_step(..., mesh=mesh)`` over ``shard_state`` and
-``shard_batch``, or per-rank loader shards through ``global_batch``).
+``shard_batch``, or per-rank loader shards through ``global_batch``), and
+pipeline parallelism over a (data, pipe, model) mesh
+(``make_pipeline_mesh``, ``make_pipeline_train_step``: GPipe over
+stage-to-stage sends, with sequence parallelism; ``parallel.dryrun``
+drives every parallel path as the JAX package's ``dryrun_multichip``).
 
 Every model method and linear impl takes the reference's ``taps``/``inject``
 seam (``ops.layers.tap``), through which ``quant.calibrate`` records
@@ -173,6 +177,14 @@ from onnx_transformer_tpu_torch.train.trainer import (  # noqa: E402
     shard_batch,
     shard_state,
 )
+from onnx_transformer_tpu_torch.parallel.pipeline import (  # noqa: E402
+    make_pipeline_mesh,
+    make_pipeline_train_step,
+    pipelined_forward_logits,
+    shard_pipeline_state,
+    stack_pipeline_params,
+    unstack_pipeline_params,
+)
 from onnx_transformer_tpu_torch.utils.torch_compat import (  # noqa: E402
     from_torch_state_dict,
     load_reference_checkpoint,
@@ -197,5 +209,7 @@ __all__ = [
     "to_torch_state_dict", "load_reference_checkpoint", "DATA_AXIS", "MODEL_AXIS", "Mesh",
     "launch", "make_mesh", "param_pspecs", "shard_params", "shard_payloads",
     "shard_linear_impl", "mesh_generator", "global_batch", "replicate_tree", "shard_state",
-    "shard_batch", "gather_state",
+    "shard_batch", "gather_state", "make_pipeline_mesh", "make_pipeline_train_step",
+    "pipelined_forward_logits", "shard_pipeline_state", "stack_pipeline_params",
+    "unstack_pipeline_params",
 ]

@@ -89,11 +89,18 @@ def flip_col_segment(x: torch.Tensor, col: int, row_start: int, height: int, bit
     return out
 
 
-def set_random_value(x: torch.Tensor, rng: torch.Generator) -> torch.Tensor:
+def set_random_value(x: torch.Tensor, rng: torch.Generator,
+                     frame: tuple[int, int] = (0, 1)) -> torch.Tensor:
     """RANDOM fault: one random fp32 value at one random flat index.  Both
-    are drawn on the CPU, so the fault costs the device no sync."""
-    idx = int(torch.randint(0, x.numel(), (), generator=rng))
+    are drawn on the CPU, so the fault costs the device no sync.  ``frame``
+    = (part, parts): ``x`` is part ``part`` of ``parts`` equal batch-major
+    parts of a whole tensor; the index is drawn over the whole, and ``x``
+    changes only where it holds it."""
+    part, parts = frame
+    idx = int(torch.randint(0, x.numel() * parts, (), generator=rng)) - part * x.numel()
     val = float(random_float32(rng))
+    if not 0 <= idx < x.numel():
+        return x
     flat = x.reshape(-1).clone()
     flat[idx] = val
     return flat.reshape(x.shape)

@@ -17,6 +17,14 @@ Fault models (the reference campaign script's list):
 Where the JAX package compiles one decode program and vmaps it over a group
 of experiments, the port runs a Python loop over the experiments
 (``faulty_greedy_decode_batch``); its results equal the serial calls.
+
+Over a mesh (``run_campaign(..., mesh=mesh)``) the sources split over
+``data`` and the model stays replicated, as in the JAX package's dry run.
+A fault's flat element, token row and RANDOM index address the whole
+batch, as they do on JAX's global arrays: the fault tree carries the rank's
+part of the batch (``part`` of ``parts``), and only the rank that holds the
+addressed element changes it.  The tokens are gathered back in order, so
+the rows, BLEUs and CSV are one device's.
 """
 
 from __future__ import annotations
@@ -30,12 +38,14 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from onnx_transformer_tpu_torch.evaluation.bleu import sentence_bleu
 from onnx_transformer_tpu_torch.inject import bits as B
 from onnx_transformer_tpu_torch.models.transformer import Transformer, default_linear
 from onnx_transformer_tpu_torch.ops import layers as L
 from onnx_transformer_tpu_torch.ops.kernels.w8a8_matmul import int_mm
+from onnx_transformer_tpu_torch.parallel.mesh import gather_rows, local_rows
 from onnx_transformer_tpu_torch.quant import core as Q
 from onnx_transformer_tpu_torch.quant.w8a8 import is_quantized_output, quantized_linear_names
 from onnx_transformer_tpu_torch.serving.decode import _on_device, ids_to_tokens
@@ -92,31 +102,51 @@ class FaultSpec:
                 "col": self.col, "seed": self.seed}
 
 
-def _fault_tree(spec: Optional[FaultSpec], ids: dict[str, int]) -> dict:
-    """The fault as host scalars; ``None`` is the disabled (golden) fault."""
+def _fault_tree(spec: Optional[FaultSpec], ids: dict[str, int], part: int = 0,
+                parts: int = 1) -> dict:
+    """The fault as host scalars; ``None`` is the disabled (golden) fault.
+    ``part`` of ``parts``: the data rank's part of the batch (module
+    docstring)."""
     if spec is None:
         return {"target": 0, "model": 0, "bit": 0, "element": 0, "row": 0, "col": 0,
-                "seed": 0, "enabled": False, "is_encoder": False, "step": 0}
+                "seed": 0, "enabled": False, "is_encoder": False, "step": 0,
+                "part": part, "parts": parts}
     return {**spec.scalars(ids), "enabled": True,
-            "is_encoder": spec.target.startswith("encoder"), "step": spec.inject_step}
+            "is_encoder": spec.target.startswith("encoder"), "step": spec.inject_step,
+            "part": part, "parts": parts}
+
+
+def _frame(fault: dict) -> tuple[int, int]:
+    """(part, parts) of a fault tree (a whole batch without them)."""
+    return fault.get("part", 0), fault.get("parts", 1)
 
 
 def _flip(kind: str, bit: int):
     return lambda v: B.FLIPS[kind](v, bit)
 
 
-def _apply_elem(x: torch.Tensor, elem: int, fn) -> torch.Tensor:
-    """``fn`` applied to one flat element (the index clipped into range)."""
+def _apply_elem(x: torch.Tensor, elem: int, fn, frame: tuple[int, int] = (0, 1)
+                ) -> torch.Tensor:
+    """``fn`` applied to one flat element (the index clipped into range).
+    ``frame`` = (part, parts): ``x`` is part ``part`` of ``parts`` equal
+    batch-major parts of a whole tensor, ``elem`` indexes the whole, and
+    ``x`` changes only where it holds that element."""
+    part, parts = frame
+    n = x.numel()
+    i = min(max(elem, 0), n * parts - 1) - part * n
+    if not 0 <= i < n:
+        return x
     flat = x.reshape(-1).clone()
-    i = min(max(elem, 0), flat.shape[0] - 1)
     flat[i:i + 1] = fn(flat[i:i + 1])
     return flat.reshape(x.shape)
 
 
 def _flip_rows(q: torch.Tensor, fault: dict, kind: str, width: int) -> torch.Tensor:
-    """INPUT16 on the flattened token rows: ``width`` features of one row."""
+    """INPUT16 on the flattened token rows: ``width`` features of one row
+    (of the whole batch's rows, see :func:`_apply_elem`)."""
     rows = q.reshape(-1, q.shape[-1])
-    return B.flip_row_segment(rows, fault["row"], fault["col"], width, fault["bit"],
+    row = fault["row"] - _frame(fault)[0] * rows.shape[0]
+    return B.flip_row_segment(rows, row, fault["col"], width, fault["bit"],
                               kind).reshape(q.shape)
 
 
@@ -125,8 +155,9 @@ def _output_fault(y: torch.Tensor, fault: dict, fm: str) -> torch.Tensor:
     seeded with the spec's seed); RANDOM_BITFLIP: an fp32 bit flip at the
     spec's element."""
     if fm == "RANDOM":
-        return B.set_random_value(y, torch.Generator().manual_seed(fault["seed"]))
-    return _apply_elem(y, fault["element"], _flip("float32", fault["bit"]))
+        return B.set_random_value(y, torch.Generator().manual_seed(fault["seed"]),
+                                  _frame(fault))
+    return _apply_elem(y, fault["element"], _flip("float32", fault["bit"]), _frame(fault))
 
 
 def make_fault_linear_impl(payloads: dict, ids: dict[str, int], fault: dict, active: bool,
@@ -154,7 +185,7 @@ def make_fault_linear_impl(payloads: dict, ids: dict[str, int], fault: dict, act
         sx = Q.act_scale_per_token(x, bits)
         xq = Q.quantize(x, sx, bits)
         if fm == "INPUT":
-            xq = _apply_elem(xq, fault["element"], flip)
+            xq = _apply_elem(xq, fault["element"], flip, _frame(fault))
         elif fm == "INPUT16":
             xq = _flip_rows(xq, fault, kind, width)
         wq = p["wq"]
@@ -202,7 +233,7 @@ def _flip_int_grid(x: torch.Tensor, fault: dict, kind: str, scale=None, bits: in
     if wide:
         q = _flip_rows(q, fault, kind, width)
     else:
-        q = _apply_elem(q, fault["element"], _flip(kind, fault["bit"]))
+        q = _apply_elem(q, fault["element"], _flip(kind, fault["bit"]), _frame(fault))
     return q.float() * s
 
 
@@ -372,23 +403,37 @@ def write_csv(rows: Sequence[dict], path: str, csv_format: str = "full") -> None
 def run_campaign(model: Transformer, params, payloads: dict, specs: Sequence[FaultSpec],
                  src, src_mask, references: Sequence[Sequence[str]], vocab_tgt,
                  max_len: int = 72, bits: int = 8, csv_path: Optional[str] = None,
-                 log_fn=None, fanout: int = 16, csv_format: str = "full") -> CampaignResult:
+                 log_fn=None, fanout: int = 16, csv_format: str = "full",
+                 mesh=None) -> CampaignResult:
     """The golden decode once, then the faulty decodes in groups of
     ``fanout``; a sentence BLEU (method4 smoothing) per experiment and
     sentence against ``references``.  Rows whose tokens equal the golden
     ones take the golden BLEU without scoring again.  ``src`` that is not a
     tensor goes to the card.  The rows are written to ``csv_path`` in
-    ``csv_format`` (:func:`write_csv`)."""
+    ``csv_format`` (:func:`write_csv`).
+
+    With a ``mesh`` the whole ``src`` and ``src_mask`` are given on every
+    rank; each data rank decodes its rows (``local_rows``) with the model
+    replicated, the tokens are gathered in order (``gather_rows``), and the
+    result is one device's on every rank; rank 0 alone writes the CSV."""
     if csv_path and csv_format not in CSV_FORMATS:
         raise ValueError(f"csv_format {csv_format!r} is not one of {CSV_FORMATS}")
     ids = _ids_from_keys(sorted(payloads), model.cfg.num_layers)
     keys = tuple(sorted(payloads))
     src, src_mask = _on_device(model, src, src_mask)
+    src, src_mask = local_rows(src, mesh), local_rows(src_mask, mesh)
+    frame = (0, 1) if mesh is None else (mesh.data_rank, mesh.data)
+
+    def decoded(ids_: torch.Tensor, dim: int) -> np.ndarray:
+        """Every data rank's rows of ``ids_`` (batch along ``dim``)."""
+        whole = gather_rows(ids_.movedim(dim, 0).contiguous(), mesh).movedim(0, dim)
+        return whole.cpu().numpy()
 
     result = CampaignResult()
     t0 = time.perf_counter()
-    golden = faulty_greedy_decode(model, keys, params, payloads, _fault_tree(None, ids),
-                                  max_len, src, src_mask, bits).cpu().numpy()
+    golden = decoded(faulty_greedy_decode(model, keys, params, payloads,
+                                          _fault_tree(None, ids, *frame), max_len, src,
+                                          src_mask, bits), 0)
     result.golden, result.golden_seconds = golden, time.perf_counter() - t0
     golden_bleus = [sentence_bleu([list(r)], h, smoothing="method4")
                     for r, h in zip(references, ids_to_tokens(golden, vocab_tgt))]
@@ -397,9 +442,9 @@ def run_campaign(model: Transformer, params, payloads: dict, specs: Sequence[Fau
     for start in range(0, len(specs), fanout):
         group = specs[start:start + fanout]
         t0 = time.perf_counter()
-        outs = faulty_greedy_decode_batch(model, keys, params, payloads,
-                                          [_fault_tree(s, ids) for s in group], max_len,
-                                          src, src_mask, bits).cpu().numpy()
+        outs = decoded(faulty_greedy_decode_batch(model, keys, params, payloads,
+                                                  [_fault_tree(s, ids, *frame) for s in group],
+                                                  max_len, src, src_mask, bits), 1)
         result.groups.append((len(group), time.perf_counter() - t0))
         result.faulty.extend(outs)
         for spec, faulty in zip(group, outs):
@@ -420,6 +465,6 @@ def run_campaign(model: Transformer, params, payloads: dict, specs: Sequence[Fau
             dt = sum(s for _, s in result.groups[1:])
             rate = n_steady / dt if dt > 0 else 0.0
             log_fn(f"{len(result.rows)} rows / {done} specs done (steady {rate:.1f} exp/s)")
-    if csv_path:
+    if csv_path and (mesh is None or dist.get_rank() == 0):
         write_csv(result.rows, csv_path, csv_format)
     return result

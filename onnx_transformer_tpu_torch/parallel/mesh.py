@@ -1,5 +1,6 @@
 """The (data, model) device mesh on ``torch.distributed`` (port of
-``onnx_transformer_tpu/parallel/mesh.py``).
+``onnx_transformer_tpu/parallel/mesh.py``), and the (data, pipe, model)
+mesh of pipeline parallelism (``parallel/pipeline.py``) as the same view.
 
 The JAX package runs one controller over every device and lets GSPMD insert
 the collectives.  Here each rank is a process of one process group
@@ -9,6 +10,11 @@ model with ``init_device_mesh``, and every collective is an explicit call on
 one of the rank's two groups (``parallel/collectives.py``): the ``model``
 group of the ranks that share a batch row and hold the shards of one weight,
 the ``data`` group of the ranks that hold the same shard of different rows.
+A pipeline mesh adds the ``pipe`` group of the ranks that hold the stages
+of one model replica; its ``data`` group is then the ranks that share
+(pipe, model) coordinates and its ``model`` group those that share (data,
+pipe), so the tensor-parallel view and the data-parallel sums work inside a
+stage as they do without one.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from onnx_transformer_tpu_torch.parallel.collectives import data_gather
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+PIPE_AXIS = "pipe"
 
 
 def default_backend(device) -> str:
@@ -54,7 +61,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
 class Mesh:
     """One rank's view of the data x model mesh: the ``DeviceMesh``, the
     mesh's sizes, this rank's coordinates in it, the process groups of its
-    two axes and the device its tensors live on."""
+    two axes and the device its tensors live on; on a pipeline mesh also
+    the ``pipe`` axis's size, coordinate and group (1, 0 and None
+    elsewhere)."""
 
     device_mesh: object
     data: int
@@ -64,6 +73,9 @@ class Mesh:
     data_group: object
     model_group: object
     device: torch.device
+    pipe: int = 1
+    pipe_rank: int = 0
+    pipe_group: object = None
 
 
 def make_mesh(data: int = -1, model: int = 1, device=None) -> Mesh:
@@ -81,17 +93,24 @@ def make_mesh(data: int = -1, model: int = 1, device=None) -> Mesh:
         data = n // model
     if data * model != n:
         raise ValueError(f"a mesh of {data} x {model} does not cover the {n} ranks")
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        dev = torch.device("cuda", torch.cuda.current_device() if dev.index is None
-                           else dev.index)
-        torch.cuda.set_device(dev)
+    dev = rank_device(device)
     from torch.distributed.device_mesh import init_device_mesh
 
     dm = init_device_mesh(dev.type, (data, model), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
     d_rank, m_rank = dm.get_coordinate()
     return Mesh(dm, data, model, d_rank, m_rank, dm.get_group(DATA_AXIS),
                 dm.get_group(MODEL_AXIS), dev)
+
+
+def rank_device(device=None) -> torch.device:
+    """The device of this rank's tensors (the card by default), made the
+    process's current card before any group is made."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device() if dev.index is None
+                           else dev.index)
+        torch.cuda.set_device(dev)
+    return dev
 
 
 def local_rows(x: torch.Tensor, mesh: Optional[Mesh], dim: int = 0) -> torch.Tensor:
@@ -113,10 +132,10 @@ _DATA_SEED_STRIDE = 0x9E3779B97F4A7C15
 
 def mesh_generator(seed: int, mesh: Optional[Mesh], device=None) -> torch.Generator:
     """A ``torch.Generator`` for this rank's dropout: seeded alike on every
-    rank of a model group, so that the replicated activations draw the same
-    masks there (and the sharded ones, each rank keeping its block of one
-    whole-tensor draw, one device's masks), and differently on each data
-    rank, whose rows differ."""
+    rank of a model group and of a pipe group, so that the replicated
+    activations draw the same masks there (and the sharded ones, each rank
+    keeping its block of one whole-tensor draw, one device's masks), and
+    differently on each data rank, whose rows differ."""
     dev = resolve_device(device) if mesh is None else mesh.device
     rank = 0 if mesh is None else mesh.data_rank
     return torch.Generator(device=dev).manual_seed((seed + _DATA_SEED_STRIDE * rank) % (1 << 63))

@@ -75,25 +75,27 @@ def _local(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     return x
 
 
-def _walk(params: Any, specs: Any, fn) -> Any:
+def map_specs(params: Any, specs: Any, fn) -> Any:
+    """The tree of ``params`` with ``fn(leaf, spec)`` at every leaf, ``spec``
+    the leaf's entry in the matching spec tree ``specs``."""
     if isinstance(params, dict):
-        return {k: _walk(v, specs[k], fn) for k, v in params.items()}
+        return {k: map_specs(v, specs[k], fn) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
-        return [_walk(v, s, fn) for v, s in zip(params, specs)]
+        return [map_specs(v, s, fn) for v, s in zip(params, specs)]
     return fn(params, specs)
 
 
 def replicated_mask(params: Any) -> Any:
     """A tree of bools matching ``params``: True where a leaf is replicated
     over ``model`` (every rank holds it whole)."""
-    return _walk(params, param_pspecs(params), lambda _, spec: MODEL_AXIS not in spec)
+    return map_specs(params, param_pspecs(params), lambda _, spec: MODEL_AXIS not in spec)
 
 
 def shard_params(params: Any, mesh) -> Any:
     """This rank's slices of a full parameter tree, on the mesh's device."""
     dev = mesh.device
-    return _walk(params, param_pspecs(params),
-                 lambda x, spec: _local(x, spec, mesh).to(dev))
+    return map_specs(params, param_pspecs(params),
+                     lambda x, spec: _local(x, spec, mesh).to(dev))
 
 
 def param_shardings(params: Any) -> Any:
@@ -108,7 +110,7 @@ def param_shardings(params: Any) -> Any:
         return tuple(next((Shard(d) for d, a in enumerate(spec) if a == axis), Replicate())
                      for axis in (DATA_AXIS, MODEL_AXIS))
 
-    return _walk(params, param_pspecs(params), lambda _, spec: placements(spec))
+    return map_specs(params, param_pspecs(params), lambda _, spec: placements(spec))
 
 
 def linear_kind(name: str) -> str:
@@ -168,4 +170,4 @@ def gather_params(params: Any, mesh) -> Any:
     """The whole parameter tree from this rank's slices (the inverse of
     :func:`shard_params`), the same on every rank of the model group: what
     fetching a sharded global array gives in the JAX package."""
-    return _walk(params, param_pspecs(params), lambda x, spec: _whole(x, spec, mesh))
+    return map_specs(params, param_pspecs(params), lambda x, spec: _whole(x, spec, mesh))

@@ -127,34 +127,50 @@ def init_state(model: Transformer, tx: AdamNoam, seed: int = 0, device=None) -> 
 
 
 def _loss_fn(model, params, src, tgt_in, tgt_y, src_mask, tgt_mask, rng, smoothing,
-             lin=default_linear, compute_dtype=None, taps=None, inject=None):
+             lin=default_linear, compute_dtype=None, taps=None, inject=None, forward=None):
     """Forward + label-smoothing KL -> (loss / ntok, loss, ntok) with ntok
     at least 1.  Under ``compute_dtype`` every f32 leaf is cast inside the
     loss; the log-softmax and KL run in f32.  Under a mesh (``model.mesh``)
     ``ntok`` is the whole data-sharded batch's, summed over ``data`` before
     the floor at 1; ``loss`` stays this rank's KL sum.  ``taps`` and
-    ``inject`` reach the model's seam (``ops.layers.tap``)."""
+    ``inject`` reach the model's seam (``ops.layers.tap``).  ``forward``,
+    where given, computes the logits in place of the model's forward and
+    generator (:func:`make_train_step`)."""
     if compute_dtype is not None:
         params = tree_map(lambda p: p.to(compute_dtype) if p.dtype == torch.float32 else p,
                           params)
-    h = model.forward(params, src, tgt_in, src_mask, tgt_mask, rng=rng, train=True,
-                      taps=taps, inject=inject, lin=lin)
-    logits = model.generate(params, h, taps=taps, inject=inject, lin=lin, log_probs=False)
+    if forward is not None:
+        if taps is not None or inject is not None:
+            raise ValueError("taps and inject reach the model's own forward; give a "
+                             "custom forward a linear impl that carries them")
+        logits = forward(params, src, tgt_in, src_mask, tgt_mask, rng=rng)
+    else:
+        h = model.forward(params, src, tgt_in, src_mask, tgt_mask, rng=rng, train=True,
+                          taps=taps, inject=inject, lin=lin)
+        logits = model.generate(params, h, taps=taps, inject=inject, lin=lin, log_probs=False)
+    return token_loss(logits, tgt_y, model.cfg.pad_id, smoothing, model.mesh)
+
+
+def token_loss(logits, tgt_y, pad_id: int, smoothing: float, mesh=None) -> tuple:
+    """(loss / ntok, loss, ntok) of ``logits``: the label-smoothing KL of
+    their f32 log-softmax, over the token count at least 1; under a
+    ``mesh`` the count is the whole data-sharded batch's, summed over
+    ``data`` before the floor, and ``loss`` stays this rank's KL sum."""
     logp = torch.log_softmax(logits.float(), dim=-1)
-    loss, ntok = loss_and_ntokens(logp, tgt_y, model.cfg.pad_id, smoothing)
-    if model.mesh is not None:
-        ntok = data_sum([ntok], model.mesh)[0]
+    loss, ntok = loss_and_ntokens(logp, tgt_y, pad_id, smoothing)
+    if mesh is not None:
+        ntok = data_sum([ntok], mesh)[0]
     ntok = ntok.clamp_min(1)
     return loss / ntok, loss, ntok
 
 
 def _local_grads(model: Transformer, params, micro: tuple, rng, smoothing: float, lin,
-                 compute_dtype, taps=None, inject=None) -> tuple[tuple, list]:
+                 compute_dtype, taps=None, inject=None, forward=None) -> tuple[tuple, list]:
     """((loss / ntok, loss, ntok), gradients) of this rank's part of the
     loss, detached; under a mesh not yet summed over ``data``."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     loss_mean, loss, ntok = _loss_fn(model, tree_unflatten(params, leaves), *micro, rng,
-                                     smoothing, lin, compute_dtype, taps, inject)
+                                     smoothing, lin, compute_dtype, taps, inject, forward)
     grads = torch.autograd.grad(loss_mean, leaves, materialize_grads=True)
     return (loss_mean.detach(), loss.detach(), ntok), list(grads)
 
@@ -169,23 +185,24 @@ def _data_summed(grads: list, loss: torch.Tensor, mesh) -> tuple[list, torch.Ten
 
 def value_and_grad(model: Transformer, params, micro: tuple, rng=None, smoothing: float = 0.1,
                    lin=default_linear, compute_dtype=None, taps=None,
-                   inject=None) -> tuple[tuple, list]:
+                   inject=None, forward=None) -> tuple[tuple, list]:
     """((loss / ntok, loss, ntok), gradients) of the training loss on one
     microbatch, the gradients a list in ``params.tree_leaves`` order.  The
     loss tensors are detached.  Under a mesh (``model.mesh``, over this
     rank's parameter slices and batch rows) those of the whole
     data-sharded microbatch: the gradients this rank's slices of the whole
     batch's, the loss and count the whole batch's.  ``taps`` and ``inject``
-    reach the model's seam (``ops.layers.tap``)."""
+    reach the model's seam (``ops.layers.tap``); ``forward`` as in
+    :func:`make_train_step`."""
     (_, loss, ntok), grads = _local_grads(model, params, micro, rng, smoothing, lin,
-                                          compute_dtype, taps, inject)
+                                          compute_dtype, taps, inject, forward)
     grads, loss = _data_summed(grads, loss, model.mesh)
     return (loss / ntok, loss, ntok), grads
 
 
 def make_train_step(model: Transformer, tx: AdamNoam, mesh=None, accum: int = 1,
                     smoothing: float = 0.1, donate: bool = True, lin=default_linear,
-                    compute_dtype=None):
+                    compute_dtype=None, forward=None):
     """Build the train step ``fn(state_tree, batch, rng) -> (state_tree,
     metrics)``.
 
@@ -198,7 +215,10 @@ def make_train_step(model: Transformer, tx: AdamNoam, mesh=None, accum: int = 1,
     ``donate`` the state's tensors are updated in place and returned (the
     counterpart of JAX's buffer donation); without it the given state is
     left as it was.  ``lin`` swaps the linear impl, e.g. the QAT fake-quant
-    ``quant.int4.make_qat_linear_impl``.
+    ``quant.int4.make_qat_linear_impl``.  ``forward(params, src, tgt_in,
+    src_mask, tgt_mask, rng=)``, where given, returns the logits in place of
+    the model's forward and generator, with its own linear impl bound (the
+    pipelined forward, ``parallel.pipeline.make_pipeline_train_step``).
 
     With a ``mesh``, the step of one rank: ``state_tree`` from
     :func:`shard_state`, ``batch`` this rank's rows (:func:`shard_batch`,
@@ -213,7 +233,7 @@ def make_train_step(model: Transformer, tx: AdamNoam, mesh=None, accum: int = 1,
 
     def grads_of(params, micro, rng):
         (_, loss, ntok), grads = _local_grads(model, params, micro, rng, smoothing, lin,
-                                              compute_dtype)
+                                              compute_dtype, forward=forward)
         return grads, loss, ntok
 
     def step_fn(state: dict, batch: tuple, rng: Optional[torch.Generator]):
@@ -240,7 +260,7 @@ def make_train_step(model: Transformer, tx: AdamNoam, mesh=None, accum: int = 1,
     return step_fn
 
 
-def _map_state(state_tree: dict, params_fn, other_fn) -> dict:
+def map_state(state_tree: dict, params_fn, other_fn) -> dict:
     """``params_fn`` on the parameters and Adam's moments, ``other_fn`` on
     the counts and the step."""
     adam, sched = state_tree["opt_state"]
@@ -256,14 +276,14 @@ def shard_state(state_tree: dict, mesh) -> dict:
     Adam's moments sliced by ``param_pspecs`` (``parallel.shard_params``),
     the counts and the step replicated.  New tensors: the given state is
     left as it was."""
-    return _map_state(state_tree, lambda tree: tree_map(torch.clone, shard_params(tree, mesh)),
+    return map_state(state_tree, lambda tree: tree_map(torch.clone, shard_params(tree, mesh)),
                       lambda x: x.to(mesh.device, copy=True))
 
 
 def gather_state(state_tree: dict, mesh) -> dict:
     """The whole train state from this rank's slices (the inverse of
     :func:`shard_state`), the same on every rank of the model group."""
-    return _map_state(state_tree, lambda tree: gather_params(tree, mesh), lambda x: x)
+    return map_state(state_tree, lambda tree: gather_params(tree, mesh), lambda x: x)
 
 
 def shard_batch(batch: tuple, mesh, accum: int = 1) -> tuple:

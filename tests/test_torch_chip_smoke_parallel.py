@@ -1,15 +1,18 @@
 """chip_smoke.py's phase "parallel" rehearsed on the CPU at a tiny size
-(IWSLT14-base widths, 1 + 1 layers, 4 slots, sources of 9; training at 1 +
-1 layers over 4 x 9 pairs): the one-device reference and a world of one
-rank in this process (over gloo here, nccl on the card), then two spawned
-ranks over gloo, every gate of ``check_parallel`` held, the W4A8 logits and
-the TP and DP train steps among them.  The kernel wrappers are wrapped to
+(IWSLT14-base widths, 1 + 1 layers, 4 slots, sources of 9; training at 2 +
+2 layers over 4 x 9 pairs, so that the pipelined step splits them into two
+stages; the campaign over data=2 on 4 sources of 9, max_len 8): the
+one-device reference and a world of one rank in this process (over gloo
+here, nccl on the card), then two spawned ranks over gloo, every gate of
+``check_parallel`` held, the W4A8 logits, the TP, DP and pipelined train
+steps and the campaign among them.  The kernel wrappers are wrapped to
 count in this process (the spawned ranks take the plain versions and count
 nothing on the CPU, so their launch gate runs on the card only).  Then each
 gate on results made wrong on purpose, two training runs made wrong on
 purpose in the ranks (a loss normalised by the mean of the data ranks'
 means, dropout generators seeded apart across the model group, the timed
-step's gradient negated under a mesh), K5's and K8's expected launches,
+step's gradient negated under a mesh, the pipeline's sum of the encoder
+memory's cotangent over ``pipe`` left out), K5's and K8's expected launches,
 and the ranks' cleanup when they raise."""
 
 import copy
@@ -25,7 +28,8 @@ import onnx_transformer_tpu_torch as P
 
 CPU = torch.device("cpu")
 TINY = dict(layers=1, slots=4, requests=6, seq=9, chunk=3, buckets=(3, 6, 9))
-TINY_TRAIN = dict(layers=1, rows=4, seq=9)
+TINY_TRAIN = dict(layers=2, rows=4, seq=9)
+TINY_CAMPAIGN = dict(rows=4, seq=9, max_len=8)
 
 
 @pytest.fixture(scope="module")
@@ -34,7 +38,7 @@ def phase_runs():
     with pytest.MonkeyPatch.context() as mp:
         install_rehearsal(mp)
         return C.run_parallel_path(CPU, card="cpu", sizes=TINY, one_backend="gloo",
-                                   timeout_s=300, train=TINY_TRAIN)
+                                   timeout_s=300, train=TINY_TRAIN, campaign=TINY_CAMPAIGN)
 
 
 def test_parallel_phase_rehearsal(phase_runs):
@@ -75,6 +79,40 @@ def test_parallel_train_rehearsal(phase_runs):
         assert np.isfinite(train["bf16"]["loss"]) and train["bf16"]["replicated_equal"]
 
 
+def test_pipelined_train_and_campaign_rehearsal(phase_runs):
+    """Both ranks' pipelined steps (two stages of one layer, 2 microbatches)
+    held to one device's, gradients gathered over ``pipe``; per step a rank
+    sends or receives each microbatch's activation once a pipeline (the
+    encoder's and the decoder's) and its cotangent once back; the campaign
+    over data=2 gives one device's rows."""
+    for rank in phase_runs["two"]["ranks"]:
+        pp = rank["train"]["PP"]
+        assert pp["ntok"] == rank["train"]["one"]["ntok"] > 0
+        assert pp["loss_rel"] <= 1e-6 and pp["grad_share"] <= 1e-5, pp
+        assert pp["step_loss_rel"] <= 1e-6 and pp["step_mu_share"] <= 1e-5, pp
+        assert pp["step_mu_same"] == 0.0 and pp["gate_flips"] == 0 and pp["gates"] > 0, pp
+        assert pp["replicated_equal"] and pp["launches"] == {}
+        assert pp["pipe_sends"] == pp["pipe_recvs"] == 2 * C.PP_MICRO
+        assert {"pipe_exchange", "pipe_broadcast", "pipe_sum"} <= set(pp["collectives"])
+        camp = rank["campaign"]
+        assert camp["rows_equal"] and camp["golden_equal"] and camp["faulty_equal"]
+        assert camp["rows"] == 2 * TINY_CAMPAIGN["rows"] and camp["launches"] == {}
+        # the INPUT fault addresses the last row, on the second data rank
+        assert camp["tokens_changed"][4:7] == [0, 0, 0]
+
+
+def test_campaign_specs_as_each_data_rank_sees_them():
+    """The WEIGHT fault on every rank as it is; the INPUT fault of the last
+    source on the second data rank's last row, and on the first rank none."""
+    whole = C.campaign_specs(8, 512)
+    first, second = C.campaign_specs(8, 512, 0, 2), C.campaign_specs(8, 512, 1, 2)
+    assert first[0] == second[0] == whole[0]
+    assert whole[1].element == 7 * 512 + 17 and first[1] is None
+    assert second[1].element == 3 * 512 + 17
+    assert {k: v for k, v in vars(second[1]).items() if k != "element"} == \
+        {k: v for k, v in vars(whole[1]).items() if k != "element"}
+
+
 def _wrong_train_rank(how: str, train: dict) -> list:
     """A rank of a training run made wrong on purpose, every rank's
     ``tp_train`` result gathered: "per-rank mean" normalises each data
@@ -82,7 +120,10 @@ def _wrong_train_rank(how: str, train: dict) -> list:
     the per-rank means, not the KL over the whole batch's count); "drift"
     seeds the dropout generators apart on the ranks of a model group;
     "step sign" negates the gradient of the timed step under a mesh (the
-    one without taps or inject), leaving ``value_and_grad``'s as it is."""
+    one without taps or inject), leaving ``value_and_grad``'s as it is;
+    "pipe sum" leaves out the pipeline's sum over ``pipe`` of the extras'
+    cotangents (the encoder memory's: each stage's decoder layers read
+    it)."""
     import torch.distributed as dist
 
     from onnx_transformer_tpu_torch.train import trainer as T
@@ -99,26 +140,38 @@ def _wrong_train_rank(how: str, train: dict) -> list:
     elif how == "step sign":
         real = T._local_grads
 
-        def negated(model, *args):
-            out, grads = real(model, *args)
+        def negated(model, *args, **kwargs):
+            out, grads = real(model, *args, **kwargs)
             if model.mesh is not None and len(args) == 6:
                 grads = [-g for g in grads]
             return out, grads
 
         T._local_grads = negated
+    elif how == "pipe sum":
+        from onnx_transformer_tpu_torch.parallel import pipeline as PP
+
+        PP.pipe_sum = lambda tensors, mesh: list(tensors)
+        result, ref = C.tp_train(CPU, train)
+        result["PP"] = C.pp_train(**ref)
+        everyone = [None] * dist.get_world_size()
+        dist.all_gather_object(everyone, result)
+        return everyone
     else:
         P.mesh_generator = lambda seed, mesh, device=None: torch.Generator(
             device=mesh.device).manual_seed(seed + dist.get_rank())
     everyone = [None] * dist.get_world_size()
-    dist.all_gather_object(everyone, C.tp_train(CPU, train))
+    dist.all_gather_object(everyone, C.tp_train(CPU, train)[0])
     return everyone
 
 
 @pytest.mark.parametrize("how,match", [("per-rank mean", "parallel train DP"),
                                        ("drift", "parallel train bf16"),
-                                       ("step sign", "parallel train TP rank 0: the timed step")])
+                                       ("step sign", "parallel train TP rank 0: the timed step"),
+                                       ("pipe sum", "parallel train PP rank 0: loss")])
 def test_parallel_train_gates_catch_a_wrong_run(how, match):
-    ranks = P.launch(_wrong_train_rank, 2, how, TINY_TRAIN, timeout_s=300)
+    # a pipelined step needs an even depth; the others train one layer
+    train = TINY_TRAIN if how == "pipe sum" else {**TINY_TRAIN, "layers": 1}
+    ranks = P.launch(_wrong_train_rank, 2, how, train, timeout_s=300)
     with pytest.raises(AssertionError, match=match):
         C.check_parallel_train(ranks)
 
@@ -186,6 +239,16 @@ def _broken(phase_runs, how):
      "the timed step's loss"),
     (lambda r: r["gloo x2"]["ranks"][0]["train"]["DP"].update(step_mu_same=1e-5),
      "unsnapped gradient"),
+    (lambda r: r["gloo x2"]["ranks"][1]["train"]["PP"].update(replicated_equal=False),
+     "parallel train PP rank 1: the replicated leaves differ"),
+    (lambda r: r["gloo x2"]["ranks"][0]["train"].pop("PP"), "ran no pipelined train step"),
+    (lambda r: r["gloo x2"]["ranks"][0]["train"]["PP"].update(launches={"w8a8": 1}),
+     "parallel train PP rank 0: the step launched"),
+    (lambda r: r["gloo x2"]["ranks"][1]["train"]["PP"].update(grad_share=2e-4),
+     "parallel train PP rank 1: loss"),
+    (lambda r: r["gloo x2"]["ranks"][1]["campaign"].update(faulty_equal=False),
+     "parallel campaign rank 1"),
+    (lambda r: r["gloo x2"]["ranks"][0]["campaign"].update(rows=7), "parallel campaign rank 0"),
     (lambda r: r["gloo x1"]["launches"].update(attn=1), "launched"),
     (lambda r: r["gloo x2"].update(warnings=[]), "fused_attn was dropped"),
     (lambda r: r["gloo x2"].update(kv_bytes=r["gloo x2"]["kv_bytes"] * 2), "KV bytes"),
