@@ -56,10 +56,14 @@ decode, the prefill and the decode step per batch bucket with
 ``torch.export`` into a bundle that ``load_exported`` loads without the
 model code, and ``export_qdq_onnx`` writes the QDQ ONNX graphs;
 ``utils.torch_compat`` converts the reference's ``state_dict`` both ways,
-``utils.profiling`` holds span timers and ``torch.profiler`` hooks.  The
-export and serve command lines are ``python -m
-onnx_transformer_tpu_torch.export`` and ``python -m
-onnx_transformer_tpu_torch.serving``.
+``utils.profiling`` holds span timers and ``torch.profiler`` hooks.
+
+Command lines, the counterparts of the JAX package's scripts: ``python -m
+onnx_transformer_tpu_torch.train`` (with ``--pipeline`` and
+``--num-processes``), ``.quant`` (calibration), ``.evaluation`` (test-set
+BLEU), ``.inject`` (the fault campaign), ``.export``, ``.serving`` and
+``.ops.kernels.roofline`` (K4's and K5's share of the card's int8 peak,
+and the timer and bounds of the card check).
 
 K4 and K8 (the per-token quantize fused into K5's product, over int8 or
 packed-int4 weights) have no caller on these paths, as in the JAX package.

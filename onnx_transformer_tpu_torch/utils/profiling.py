@@ -21,7 +21,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-H100_INT8_OPS_PER_S = 1979e12
+from onnx_transformer_tpu_torch.ops.kernels.roofline import INT8_OPS_PER_S as H100_INT8_OPS_PER_S
 
 
 def _sync() -> None:

@@ -1,52 +1,23 @@
 """chip_smoke.py's phases rehearsed on the CPU at a tiny size: the kernel
 checks, the chunk-staged main path, the KV-cached serving path with its
-launch counts, the int4 path with its launch counts, the fault campaign
-(no launch at all) with its check of the kernels' routing, the serving
-engine's runs with their launch arithmetic, and the reference phase.  On the CPU the kernel wrappers
-take their plain versions and count nothing, so each wrapper is wrapped
-here to count its calls; the CUDA-only timing and profiling are stubbed.
-The script itself runs on the card (``python3 chip_smoke.py``)."""
-
-import os
-import tempfile
+launch counts, the int4 path with its launch counts, the reference phase,
+the shape lists, bounds and SASS counts, and the train phase.  The fault
+campaign's rehearsal is in ``test_torch_chip_smoke_campaign.py``, the
+engine's in ``test_torch_chip_smoke_engine.py``, the command lines' in
+``test_torch_chip_smoke_cli.py``.  On the CPU the kernel wrappers take
+their plain versions and count nothing, so each wrapper is wrapped to count
+its calls (``tests/chip_smoke_rehearsal.py``); the CUDA-only timing and
+profiling are stubbed.  The script itself runs on the card (``python3
+chip_smoke.py``)."""
 
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke as C
-from onnx_transformer_tpu_torch.models import transformer as PT
-from onnx_transformer_tpu_torch.ops.kernels import decode_attention as KA
+from chip_smoke_rehearsal import CPU, rehearsal  # noqa: F401  (a fixture)
 from onnx_transformer_tpu_torch.ops.kernels import w8a8_matmul as KM
 from onnx_transformer_tpu_torch.quant import w8a8 as TW
-
-CPU = torch.device("cpu")
-
-
-def install_rehearsal(monkeypatch):
-    """Counting wrappers around the kernel wrappers; the CUDA-only timing
-    and profiling stubbed."""
-    def counting(fn):
-        def wrapper(*args, **kwargs):
-            wrapper.launches += 1
-            return fn(*args, **kwargs)
-        wrapper.launches = 0
-        wrapper.__name__ = fn.__name__
-        return wrapper
-
-    attn = counting(KA.decode_attention_int8)
-    monkeypatch.setattr(KA, "decode_attention_int8", attn)
-    monkeypatch.setattr(PT, "decode_attention_int8", attn)
-    for name in C.MATMUL_COUNTERS.values():
-        monkeypatch.setattr(KM, name, counting(getattr(KM, name)))
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    monkeypatch.setattr(C, "cuda_ms", lambda fn, **k: (fn(), 0.0)[1])
-    monkeypatch.setattr(C, "profile_decode", lambda *a, **k: None)
-
-
-@pytest.fixture
-def rehearsal(monkeypatch):
-    install_rehearsal(monkeypatch)
 
 
 def test_kernel_checks(rehearsal):
@@ -115,144 +86,6 @@ def test_int4_path_launch_counts(rehearsal, monkeypatch):
     assert res["launches"]["qout4"] == 3 * 2 and res["launches"]["q84"] == 2 * 2
     assert sum(res["launches"].values()) == 10
     assert res["agree"] == 1.0
-
-
-def test_fault_campaign_launches_no_kernel(rehearsal, monkeypatch):
-    """The fault campaign phase at 2 layers (its six specs' layers taken
-    modulo the depth): calibration, SmoothQuant, W8A8, the golden decode
-    twice, the batch against the serial decodes, the WEIGHT fault's one
-    column, both CSVs (written outside the repository) with their BLEUs,
-    and no K1-K8 launch in the campaign.  With the token threshold at 1
-    the routing check's tiny encoder takes K1/K2 (fused W8A8) and K6/K7
-    (W4A8), and its decode step K3, without a seam, and none of them with
-    ``taps={}`` or ``inject={}``."""
-    monkeypatch.setattr(TW, "FUSED_MIN_TOKENS", 1)
-    dirs = []
-    real = tempfile.TemporaryDirectory
-
-    class Recorded(real):
-        def __enter__(self):
-            dirs.append(super().__enter__())
-            return dirs[-1]
-
-    monkeypatch.setattr(tempfile, "TemporaryDirectory", Recorded)
-    base = C.build_iwslt(CPU, num_layers=2, batch=6, src_len=9)
-    res = C.run_fault_campaign(CPU, base, card="cpu", batch=4, src_len=9, max_len=8,
-                               fanout=4, calib=(2, 4, 9))
-    assert res["launches"] == dict.fromkeys(C.MATMUL_COUNTERS, 0) | {"attn": 0}
-    # at the threshold of 1: q/k/v of each encoder layer, and the step's
-    # self q/k/v and cross q of each decoder layer; the cross-K/V and the two
-    # attentions of each decoder layer
-    for label, qout, q8 in (("w8a8 fused", "qout", "q8"), ("w4a8", "qout4", "q84")):
-        assert res["routing"][label, "none"] == {qout: (3 + 4) * 2, q8: 2 * 2, "attn": 2 * 2}
-        assert res["routing"][label, "taps"] == res["routing"][label, "inject"] == {}
-    assert res["rows"] == len(C.CAMPAIGN_SPECS) * 4
-    assert res["weight_columns"] == 1 and res["agree"] == 1.0
-    repo = os.path.dirname(os.path.abspath(C.__file__))
-    assert len(dirs) == 1 and not os.path.abspath(dirs[0]).startswith(repo + os.sep)
-    assert not os.path.exists(dirs[0])
-    # the gates raise: a kernel launch in the campaign fails the phase
-    monkeypatch.setattr(C, "MATMUL_COUNTERS", {"qout": "quant_w8a8_matmul_qout"})
-    launched = KM.quant_w8a8_matmul_qout
-    real_decode = C.weight_fault_columns
-
-    def launching(*a, **k):
-        launched.launches += 1
-        return real_decode(*a, **k)
-
-    monkeypatch.setattr(C, "weight_fault_columns", launching)
-    with pytest.raises(AssertionError, match="launched in the fault campaign"):
-        C.run_fault_campaign(CPU, base, card="cpu", batch=4, src_len=9, max_len=8,
-                             fanout=4, calib=(2, 4, 9))
-
-
-ENGINE_TINY = dict(slots=8, seq=9, buckets=(3, 6, 9), chunk=3, requests=(20, 20, 8))
-
-
-def test_engine_launch_arithmetic(rehearsal, monkeypatch):
-    """The engine phase at 2 layers, 8 slots and sources of 9: with the
-    token threshold at 30, E1's and E2's prefills of 8 x 6 and 8 x 9 tokens
-    take K1/K2 and those of 8 x 3 do not, E3's (4 rows each) only at 4 x 9;
-    no decode step (8 tokens) does.  E1 takes the fast chunk (no kernel in
-    its chunks), E2 K5 for every quantized linear and K3 for every
-    attention step, E3 the beam chunk; each gives the lockstep tokens."""
-    monkeypatch.setattr(TW, "FUSED_MIN_TOKENS", 30)
-    base = C.build_iwslt(CPU, num_layers=2, batch=6, src_len=9)
-    res = C.run_engine_path(CPU, base, card="cpu", **ENGINE_TINY)
-    zero = dict.fromkeys(C.MATMUL_COUNTERS, 0) | {"attn": 0}
-    e1, e2, e3 = (res[label] for label, *_ in C.ENGINE_RUNS)
-    pre = e1["dispatch"]["prefill"]
-    assert {k for k, _ in pre} == {8} and {sb for _, sb in pre} == {3, 6, 9}
-    big = sum(sb >= 6 for _, sb in pre)
-    assert e1["launches"] == zero | {"qout": 6 * big, "q8": 4 * big}
-    steps = 3 * e2["dispatch"]["chunk"]
-    assert e2["launches"] == zero | {"w8a8": 16 * len(e2["dispatch"]["prefill"]) + 16 * steps,
-                                     "attn": 4 * steps}
-    pre3 = e3["dispatch"]["prefill"]
-    assert {k for k, _ in pre3} == {4} and 9 in {sb for _, sb in pre3}
-    big3 = sum(sb == 9 for _, sb in pre3)
-    assert big3 < len(pre3) and e3["launches"] == zero | {"qout": 6 * big3, "q8": 4 * big3}
-    for r in res.values():
-        assert r["agree"] == r["identical"] == 1.0 and 0 < r["occupancy"] <= 1
-
-
-def test_engine_gate_catches_a_lost_request(rehearsal, monkeypatch):
-    """An engine that loses one completion fails the phase."""
-    from onnx_transformer_tpu_torch.serving import engine as TE
-
-    real = TE.TranslationEngine._drain_report
-    lost = []
-
-    def losing(self, report):
-        finished = real(self, report)
-        if finished and not lost:
-            lost.append(finished.pop())
-        return finished
-
-    monkeypatch.setattr(TE.TranslationEngine, "_drain_report", losing)
-    base = C.build_iwslt(CPU, num_layers=2, batch=6, src_len=9)
-    with pytest.raises(AssertionError, match="19 requests back of 20"):
-        C.run_engine_path(CPU, base, card="cpu", **ENGINE_TINY)
-    assert len(lost) == 1
-
-
-def test_engine_gate_catches_a_wrong_request(rehearsal, monkeypatch):
-    """An engine that gets one whole request wrong (here its last token
-    lost) keeps the per-token agreement above 0.95 but fails the run's
-    least share of identical requests, set to 1.0 here."""
-    from onnx_transformer_tpu_torch.serving import engine as TE
-
-    real = TE.TranslationEngine._drain_report
-    cut = []
-
-    def cutting(self, report):
-        finished = real(self, report)
-        if finished and not cut:
-            cut.append(finished[0].out_tokens.pop())
-        return finished
-
-    monkeypatch.setattr(TE.TranslationEngine, "_drain_report", cutting)
-    monkeypatch.setattr(C, "ENGINE_RUNS", tuple(r[:4] + (1.0,) for r in C.ENGINE_RUNS))
-    base = C.build_iwslt(CPU, num_layers=2, batch=6, src_len=9)
-    with pytest.raises(AssertionError, match="E1 fast: requests identical 0.95 < 1.0"):
-        C.run_engine_path(CPU, base, card="cpu", **ENGINE_TINY)
-    assert len(cut) == 1
-
-
-@pytest.mark.parametrize("gate", ["_fused_ok", "_k6_ok"])
-def test_kernel_routing_catches_a_broken_gate(rehearsal, monkeypatch, gate):
-    """A linear impl's kernel gate that ignores the seam fails the routing
-    check: the kernel launches under taps or inject."""
-    from onnx_transformer_tpu_torch.quant import int4 as TI
-
-    monkeypatch.setattr(TW, "FUSED_MIN_TOKENS", 1)
-    module = TW if gate == "_fused_ok" else TI
-    real = getattr(module, gate)
-    monkeypatch.setattr(module, gate, lambda p, name, x, bits, taps=None, inject=None:
-                        real(p, name, x, bits))
-    base = C.build_iwslt(CPU, num_layers=2, batch=6, src_len=9)
-    with pytest.raises(AssertionError, match="kernel routing"):
-        C.check_kernel_routing(base["model"], base["params"], base["payloads"], CPU, 9)
 
 
 def test_bound_counts_packed_weights():

@@ -21,7 +21,7 @@ import multiprocessing
 import numpy as np
 import pytest
 import torch
-from test_torch_chip_smoke import install_rehearsal
+from chip_smoke_rehearsal import install_rehearsal
 
 import chip_smoke as C
 import onnx_transformer_tpu_torch as P
